@@ -7,15 +7,22 @@ layer). The kernels are hand-written CUDA C++ for Hopper (``csrc/``), built
 at first use; on CPU tensors each wrapper runs the plain PyTorch version that
 sits beside it.
 
-Ported so far: the batched QP main path — ``solve_qp_batched`` (fused PDIP
-forward, active-set polish, KKT metrics, LDL' adjoint VJP).
+Ported so far: everything the JAX package does with a ``QuadProgram`` — the
+batched main path ``solve_qp_batched`` (fused PDIP forward, active-set polish,
+KKT metrics, LDL' adjoint VJP); the staged path ``solve_qp`` (Mehrotra solver
+on the batched Cholesky kernels, reverse and forward rules, the
+``auto``/``lstsq``/``qr`` KKT routes for LPs); the differentiation verbs, the
+``QPDiffContext`` session, ``ParametricProgram(kind="qp")`` and QP padding.
 """
 
 from .ir import QPSolution, QPTangent, QuadProgram
-from .solve import solve_qp_batched
+from .qp_diff import forward_differentiate, reverse_differentiate
+from .solve import solve_qp, solve_qp_batched
 from .solvers.qp import QPSolveInfo, kkt_metrics
+from .api import NotSolvedError, QPDiffContext
+from .parameters import ParametricProgram
 from .utils.config import DiffOptConfig, get_config, set_config, use_config
-from . import convert, utils
+from . import convert, parameters, qp_diff, utils
 
 __version__ = "0.1.0"
 
@@ -24,12 +31,20 @@ __all__ = [
     "QPSolution",
     "QPTangent",
     "QPSolveInfo",
+    "forward_differentiate",
+    "reverse_differentiate",
+    "solve_qp",
     "solve_qp_batched",
+    "QPDiffContext",
+    "NotSolvedError",
+    "ParametricProgram",
     "kkt_metrics",
     "DiffOptConfig",
     "get_config",
     "set_config",
     "use_config",
     "convert",
+    "parameters",
+    "qp_diff",
     "utils",
 ]

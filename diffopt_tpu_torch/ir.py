@@ -69,7 +69,23 @@ class QuadProgram(_TensorStruct):
         dtype=None, device=None,
     ) -> "QuadProgram":
         """Build a QuadProgram, filling absent pieces with empty (or zero)
-        tensors. Leading dims of ``q`` (or ``Q``) are the batch dims."""
+        tensors. Leading dims of ``q`` (or ``Q``) are the batch dims.
+
+        Lands where the data lives: on ``device`` if given, else on the device
+        of the first argument that is a tensor, else (lists, numpy arrays) on
+        the card, as ``make_batch`` does — and raises where there is none;
+        name ``device="cpu"`` to build on the host."""
+        if device is None:
+            given = [x for x in (q, Q, A, b, G, h) if isinstance(x, torch.Tensor)]
+            if given:
+                device = given[0].device
+            elif torch.cuda.is_available():
+                device = torch.device("cuda")
+            else:
+                raise RuntimeError(
+                    "QuadProgram.make: no device given and no CUDA device available; "
+                    'pass device="cpu" to build on the host'
+                )
         as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
         if q is not None:
             q = as_t(q)
@@ -83,8 +99,8 @@ class QuadProgram(_TensorStruct):
             raise ValueError("need q, Q or n to infer the variable count")
         else:
             lead = ()
-        dt = dtype or (q.dtype if q is not None else torch.float64)
-        kw = dict(dtype=dt, device=device if device is not None else (q.device if q is not None else None))
+        dt = dtype or (q.dtype if q is not None else Q.dtype if Q is not None else torch.float64)
+        kw = dict(dtype=dt, device=device)
         fill = lambda x, shape: torch.zeros(lead + shape, **kw) if x is None else torch.as_tensor(x, **kw)
         return QuadProgram(
             Q=fill(Q, (n, n)),

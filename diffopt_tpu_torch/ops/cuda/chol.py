@@ -1,10 +1,18 @@
-"""Batched unpivoted LDL' factor and solve for symmetric quasi-definite
-matrices: CUDA kernels for Hopper, with the plain PyTorch version beside each.
+"""Batched small-matrix factorisations: Cholesky factor + solve for symmetric
+positive definite matrices and unpivoted LDL' factor + solve for symmetric
+quasi-definite ones. CUDA kernels for Hopper, with the plain PyTorch version
+beside each.
 
-Replaces ``diffopt_tpu/ops/pallas/chol.py::ldl_batched`` (kernel body
-``_ldl_kernel``) and ``::ldl_solve_batched`` (``_ldl_solve_kernel``). The
-symmetrised KKT systems are strongly factorisable (Vanderbei 1995), so no
-pivoting is needed.
+Replaces ``diffopt_tpu/ops/pallas/chol.py::cholesky_batched`` (kernel body
+``_chol_kernel``), ``::cholesky_solve_batched`` (``_solve_kernel``),
+``::ldl_batched`` (``_ldl_kernel``) and ``::ldl_solve_batched``
+(``_ldl_solve_kernel``). The symmetrised KKT systems are strongly
+factorisable (Vanderbei 1995), so the LDL' needs no pivoting.
+
+The Cholesky pair (sources: ``csrc/chol.cu``, ``csrc/dense.cuh``) follows the
+LDL' pair's design, described next; its own notes (bytes bound, the NaN
+semantics of a matrix that is not positive definite, the envelope) stand at
+the head of ``csrc/chol.cu`` and on the wrappers below.
 
 Design on the H100 (sources: ``csrc/ldl.cu``, ``csrc/dense.cuh``): one thread
 block per instance; the matrix is read once from its natural ``(B, N, N)``
@@ -71,7 +79,47 @@ def ldl_max_n(dtype) -> int:
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _lib():
+def _chol_factor_smem_bytes(n: int, itemsize: int) -> int:
+    if n <= 128:  # matrix in registers: pivots + flag word + the pivot-column buffer
+        return (n + 1 + 256) * itemsize
+    return (n * _odd(n) + n + 1) * itemsize  # matrix + pivots + flag word
+
+
+def _chol_solve_smem_bytes(n: int, k: int, itemsize: int) -> int:
+    return (n * _odd(n) + n + n * k) * itemsize  # L + 1 / diagonal + right-hand sides
+
+
+_CHOL_SOLVE_MAX_ROWS = 256  # the substitution sweep holds 32 lanes x 8 register entries
+
+
+def cholesky_max_n(dtype) -> int:
+    """Largest n that :func:`cholesky_batched` factors in its kernel for
+    ``dtype``; past it the library call takes over."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n = 1
+    while _chol_factor_smem_bytes(n + 1, itemsize) <= MAX_SMEM_BYTES:
+        n += 1
+    return n
+
+
+def _chol_lib():
+    from . import _build
+
+    lib = _build.load("chol")
+    if not getattr(lib, "_chol_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for sfx in _SUFFIX.values():
+            f = getattr(lib, f"chol_factor_{sfx}")
+            f.argtypes = [vp, vp, ci, ci, vp]
+            f.restype = ci
+            s = getattr(lib, f"chol_solve_{sfx}")
+            s.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+            s.restype = ci
+        lib._chol_bound = True
+    return lib
+
+
+def _ldl_lib():
     from . import _build
 
     lib = _build.load("ldl")
@@ -96,6 +144,53 @@ def _require_cuda(t: Tensor, what: str) -> None:
 
 
 # --- plain versions ---------------------------------------------------------
+
+
+def cholesky_batched_plain(H: Tensor) -> Tensor:
+    """Plain PyTorch right-looking Cholesky, ``(B, n, n)`` -> lower ``L`` with
+    zeros above the diagonal. Same elimination order as the kernel. A pivot
+    that is not positive gives NaN from that column on (no exception)."""
+    n = H.shape[-1]
+    a = H.clone()
+    for j in range(n):
+        r = 1.0 / torch.sqrt(a[:, j, j])
+        col = a[:, j:, j] * r[:, None]
+        a[:, j:, j] = col
+        if j + 1 < n:
+            sub = col[:, 1:]
+            a[:, j + 1:, j + 1:] -= sub[:, :, None] * sub[:, None, :]
+    return torch.tril(a)
+
+
+def forward_sub_plain(L: Tensor, rhs: Tensor) -> Tensor:
+    """Solve ``L y = rhs``; rhs ``(B, n, k)``."""
+    y = rhs.clone()
+    for j in range(L.shape[-1]):
+        if j > 0:
+            y[:, j] -= (L[:, j, :j, None] * y[:, :j]).sum(dim=1)
+        y[:, j] /= L[:, j, j, None]
+    return y
+
+
+def backward_sub_plain(L: Tensor, rhs: Tensor) -> Tensor:
+    """Solve ``L' x = rhs``; rhs ``(B, n, k)``."""
+    n = L.shape[-1]
+    x = rhs.clone()
+    for j in range(n - 1, -1, -1):
+        if j + 1 < n:
+            x[:, j] -= (L[:, j + 1:, j, None] * x[:, j + 1:]).sum(dim=1)
+        x[:, j] /= L[:, j, j, None]
+    return x
+
+
+def cholesky_solve_batched_plain(L: Tensor, rhs: Tensor) -> Tensor:
+    """Plain PyTorch solve of ``L L' x = rhs`` by forward and back
+    substitution; rhs ``(B, n)`` or ``(B, n, k)``."""
+    vec = rhs.ndim == 2
+    if vec:
+        rhs = rhs[..., None]
+    x = backward_sub_plain(L, forward_sub_plain(L, rhs))
+    return x[..., 0] if vec else x
 
 
 def ldl_batched_plain(K: Tensor):
@@ -133,6 +228,93 @@ def ldl_solve_batched_plain(L: Tensor, d: Tensor, rhs: Tensor) -> Tensor:
 # --- wrappers ---------------------------------------------------------------
 
 
+def _cholesky_library(H: Tensor) -> Tensor:
+    """Past the kernel's envelope (where the JAX package calls the library
+    too): ``cholesky_ex`` never raises; from its first failing pivot on the
+    columns become NaN, as in the kernel."""
+    L, info = torch.linalg.cholesky_ex(H)
+    n = H.shape[-1]
+    col = torch.arange(n, device=H.device)
+    bad = (info[:, None] > 0) & (col[None, :] >= info[:, None] - 1)  # (B, n): columns >= first bad pivot
+    lower = col[:, None] >= col[None, :]
+    return torch.where(bad[:, None, :] & lower, torch.full_like(L, float("nan")), L)
+
+
+def cholesky_batched(H: Tensor) -> Tensor:
+    """Batched Cholesky of symmetric positive definite matrices:
+    ``(B, n, n)`` -> lower ``L (B, n, n)`` with zeros above the diagonal. Only
+    the lower triangle of ``H`` is read. It never raises on a matrix that is
+    not positive definite: from the first pivot that is not > 0 on, the
+    columns of ``L`` are NaN, and a solve with that ``L`` is NaN throughout.
+
+    CUDA tensors go to the kernel (registers up to n = 128, shared memory up
+    to :func:`cholesky_max_n`; past that, by size, to
+    ``torch.linalg.cholesky_ex``); CPU tensors to the plain version."""
+    if H.ndim != 3 or H.shape[1] != H.shape[2]:
+        raise ValueError(f"cholesky_batched: expected (B, n, n), got {tuple(H.shape)}")
+    if H.device.type == "cpu":
+        return cholesky_batched_plain(H)
+    _require_cuda(H, "cholesky_batched")
+    B, n, _ = H.shape
+    if _chol_factor_smem_bytes(n, H.element_size()) > MAX_SMEM_BYTES:
+        return _cholesky_library(H)
+    H = H.contiguous()
+    L = torch.empty_like(H)
+    if B == 0 or n == 0:
+        return L
+    lib = _chol_lib()
+    fn = getattr(lib, f"chol_factor_{_SUFFIX[H.dtype]}")
+    with torch.cuda.device(H.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(H.data_ptr(), L.data_ptr(), B, n, stream)
+    from . import _build
+
+    _build.check(lib, code, "cholesky_batched")
+    cholesky_batched.launches += 1
+    return L
+
+
+cholesky_batched.launches = 0
+
+
+def cholesky_solve_batched(L: Tensor, rhs: Tensor) -> Tensor:
+    """Solve ``L L' x = rhs``; ``L (B, n, n)`` lower (its lower triangle is
+    read), rhs ``(B, n)`` or ``(B, n, k)``.
+
+    CUDA tensors go to the kernel (n <= 256 and L, the right-hand sides in
+    227 KB of shared memory; past that, by size, to ``torch.cholesky_solve``);
+    CPU tensors to the plain version."""
+    if L.ndim != 3 or L.shape[1] != L.shape[2] or rhs.shape[:2] != L.shape[:2] or rhs.ndim not in (2, 3):
+        raise ValueError(f"cholesky_solve_batched: shapes L {tuple(L.shape)}, rhs {tuple(rhs.shape)}")
+    if L.device.type == "cpu":
+        return cholesky_solve_batched_plain(L, rhs)
+    _require_cuda(L, "cholesky_solve_batched")
+    if rhs.device != L.device or rhs.dtype != L.dtype:
+        raise ValueError("cholesky_solve_batched: L and rhs must share device and dtype")
+    B, n, _ = L.shape
+    k = 1 if rhs.ndim == 2 else rhs.shape[2]
+    if n > _CHOL_SOLVE_MAX_ROWS or _chol_solve_smem_bytes(n, k, L.element_size()) > MAX_SMEM_BYTES:
+        out = torch.cholesky_solve(rhs[..., None] if rhs.ndim == 2 else rhs, L)
+        return out[..., 0] if rhs.ndim == 2 else out
+    L, rhs = L.contiguous(), rhs.contiguous()
+    out = torch.empty_like(rhs)
+    if B == 0 or n == 0 or k == 0:
+        return out
+    lib = _chol_lib()
+    fn = getattr(lib, f"chol_solve_{_SUFFIX[L.dtype]}")
+    with torch.cuda.device(L.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(L.data_ptr(), rhs.data_ptr(), out.data_ptr(), B, n, k, stream)
+    from . import _build
+
+    _build.check(lib, code, "cholesky_solve_batched")
+    cholesky_solve_batched.launches += 1
+    return out
+
+
+cholesky_solve_batched.launches = 0
+
+
 def ldl_batched(K: Tensor):
     """Batched LDL' of symmetric quasi-definite matrices: ``(B, N, N)`` ->
     ``(L unit-lower (B, N, N), d (B, N))``. Only the lower triangle of ``K``
@@ -153,7 +335,7 @@ def ldl_batched(K: Tensor):
     d = K.new_empty(B, N)
     if B == 0 or N == 0:
         return L, d
-    lib = _lib()
+    lib = _ldl_lib()
     fn = getattr(lib, f"ldl_factor_{_SUFFIX[K.dtype]}")
     with torch.cuda.device(K.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -190,7 +372,7 @@ def ldl_solve_batched(L: Tensor, d: Tensor, rhs: Tensor) -> Tensor:
     out = torch.empty_like(rhs)
     if B == 0 or N == 0 or k == 0:
         return out
-    lib = _lib()
+    lib = _ldl_lib()
     fn = getattr(lib, f"ldl_solve_{_SUFFIX[L.dtype]}")
     with torch.cuda.device(L.device):
         stream = torch.cuda.current_stream().cuda_stream

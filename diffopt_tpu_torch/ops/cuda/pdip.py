@@ -24,9 +24,8 @@ overlap with another's arithmetic.
 Envelope of the kernel: ``m >= 1``, ``1 <= p <= 128``, ``n <= 128`` (H and S
 are factorised in register tiles, which hold 128 rows) and a working set that
 fits 227 KB of shared memory (:func:`smem_bytes`; at n = 128 that allows
-p = 128 in f32 and p = 32 in f64). Past it :func:`solve_batched_fused` raises
-``NotImplementedError`` — the staged solver that takes those shapes in the JAX
-package is not ported yet, and no other route is taken quietly.
+p = 128 in f32 and p = 32 in f64). A batch outside it goes, by its shape, to
+the staged solver (``solvers/qp.py::solve_batched``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ import ctypes
 import torch
 
 from ...ir import QPSolution, QuadProgram
+from . import chol
 from .chol import MAX_SMEM_BYTES, _SUFFIX, _odd, _require_cuda
 
 Tensor = torch.Tensor
@@ -52,6 +52,14 @@ def smem_bytes(n: int, m: int, p: int, itemsize: int, stage: bool) -> int:
     words += n * _odd(n) + n * _odd(p) + p * _odd(p)
     words += 9 * n + 12 * m + 7 * p + _SLOTS + _COLBUF
     return words * itemsize
+
+
+def in_envelope(n: int, m: int, p: int, itemsize: int) -> bool:
+    """Whether the fused kernel takes the shape."""
+    return (
+        m >= 1 and 1 <= p <= MAX_ROWS and n <= MAX_ROWS
+        and smem_bytes(n, m, p, itemsize, stage=False) <= MAX_SMEM_BYTES
+    )
 
 
 def default_tol(dtype) -> float:
@@ -81,42 +89,6 @@ def _lib():
 # --- plain version ----------------------------------------------------------
 
 
-def _chol_plain(H: Tensor) -> Tensor:
-    """Right-looking Cholesky, (B, n, n) -> lower L. A non-positive pivot gives
-    NaN/inf entries (no exception), as in the kernel."""
-    n = H.shape[-1]
-    a = H.clone()
-    for j in range(n):
-        r = 1.0 / torch.sqrt(a[:, j, j])
-        col = a[:, j:, j] * r[:, None]
-        a[:, j:, j] = col
-        if j + 1 < n:
-            sub = col[:, 1:]
-            a[:, j + 1:, j + 1:] -= sub[:, :, None] * sub[:, None, :]
-    return torch.tril(a)
-
-
-def _forward_sub_plain(L: Tensor, rhs: Tensor) -> Tensor:
-    """Solve L y = rhs; rhs (B, n, k)."""
-    y = rhs.clone()
-    for j in range(L.shape[-1]):
-        if j > 0:
-            y[:, j] -= (L[:, j, :j, None] * y[:, :j]).sum(dim=1)
-        y[:, j] /= L[:, j, j, None]
-    return y
-
-
-def _backward_sub_plain(L: Tensor, rhs: Tensor) -> Tensor:
-    """Solve L' x = rhs; rhs (B, n, k)."""
-    n = L.shape[-1]
-    x = rhs.clone()
-    for j in range(n - 1, -1, -1):
-        if j + 1 < n:
-            x[:, j] -= (L[:, j + 1:, j, None] * x[:, j + 1:]).sum(dim=1)
-        x[:, j] /= L[:, j, j, None]
-    return x
-
-
 def solve_batched_fused_plain(
     qp: QuadProgram,
     *,
@@ -134,7 +106,7 @@ def solve_batched_fused_plain(
     B, n, m, p = qp.batch_size, qp.num_vars, qp.num_ineq, qp.num_eq
     dt, dev = Q.dtype, Q.device
     if m == 0 or p == 0:
-        raise NotImplementedError(_EMPTY_BLOCK_MSG.format(m=m, p=p))
+        raise ValueError(f"the fused solver needs m >= 1 and p >= 1 (got m = {m}, p = {p})")
     tol = default_tol(dt) if tol is None else tol
     reg = default_reg(dt) if reg is None else reg
 
@@ -150,9 +122,9 @@ def solve_batched_fused_plain(
         """L_h = chol(H), W = L_h^-1 A', L_s = chol(S) with S = A H^-1 A' + reg I = W'W + reg I."""
         ls = lam / s
         H = Q + reg * eye_n + (G * ls[:, :, None]).transpose(1, 2) @ G
-        Lh = _chol_plain(H)
-        W = _forward_sub_plain(Lh, At)
-        Ls = _chol_plain(reg * eye_p + W.transpose(1, 2) @ W)
+        Lh = chol.cholesky_batched_plain(H)
+        W = chol.forward_sub_plain(Lh, At)
+        Ls = chol.cholesky_batched_plain(reg * eye_p + W.transpose(1, 2) @ W)
         return Lh, W, Ls
 
     def solve_dir(K, rd, rpe, rpi, rc, lam, s):
@@ -160,10 +132,10 @@ def solve_batched_fused_plain(
         the forward half of each H-solve shared: w = L^-1 rhs, dz = L'^-1 (w - W dnu)."""
         Lh, W, Ls = K
         rhs_z = -rd + rmv(G, (rc - lam * rpi) / s)
-        w = _forward_sub_plain(Lh, rhs_z[..., None])
+        w = chol.forward_sub_plain(Lh, rhs_z[..., None])
         rhs_s = rmv(W, w[..., 0]) + rpe
-        dnu = _backward_sub_plain(Ls, _forward_sub_plain(Ls, rhs_s[..., None]))
-        dz = _backward_sub_plain(Lh, w - W @ dnu)[..., 0]
+        dnu = chol.backward_sub_plain(Ls, chol.forward_sub_plain(Ls, rhs_s[..., None]))
+        dz = chol.backward_sub_plain(Lh, w - W @ dnu)[..., 0]
         dnu = dnu[..., 0]
         ds = -rpi - mv(G, dz)
         dlam = -(rc + lam * ds) / s
@@ -257,12 +229,6 @@ def solve_batched_fused_plain(
 
 # --- wrapper ----------------------------------------------------------------
 
-_EMPTY_BLOCK_MSG = (
-    "solve_batched_fused needs at least one inequality and one equality row "
-    "(got m = {m}, p = {p}); the staged QP solver that takes empty blocks is not ported yet"
-)
-
-
 def solve_batched_fused(
     qp: QuadProgram,
     *,
@@ -278,20 +244,21 @@ def solve_batched_fused(
     ``iterations`` is the int32 per-instance count of IPM bodies executed
     before the instance converged, stalled or froze.
 
-    CUDA tensors go to the kernel; CPU tensors to the plain version. Raises
-    ``NotImplementedError`` for ``m == 0``, ``p == 0`` or a size past the
-    kernel's envelope (``n, p <= 128`` and its shared memory)."""
+    The route is chosen by shape alone, never by a failure: ``m == 0``,
+    ``p == 0`` or a size past the kernel's envelope (:func:`in_envelope`:
+    ``n, p <= 128`` and its shared memory) goes to the staged solver
+    (``solvers/qp.py::solve_batched``) with the same ``max_iters``, ``tol``
+    and ``reg``, and ``iterations`` is then that solver's count. Inside the
+    envelope CUDA tensors go to the kernel (a failed build or launch raises)
+    and CPU tensors to the plain version."""
     n, m, p = qp.num_vars, qp.num_ineq, qp.num_eq
     dt = qp.Q.dtype
-    if m == 0 or p == 0:
-        raise NotImplementedError(_EMPTY_BLOCK_MSG.format(m=m, p=p))
     itemsize = qp.Q.element_size()
-    if n > MAX_ROWS or p > MAX_ROWS or smem_bytes(n, m, p, itemsize, stage=False) > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            f"solve_batched_fused: n = {n}, m = {m}, p = {p} in {dt} is past the fused kernel's "
-            f"envelope (n, p <= {MAX_ROWS} and {MAX_SMEM_BYTES} bytes of shared memory); the staged "
-            "QP solver that takes such sizes is not ported yet"
-        )
+    if not in_envelope(n, m, p, itemsize):
+        from ...solvers import qp as qpsolver
+
+        sol, info = qpsolver.solve_batched(qp, max_iters=max_iters, tol=tol, reg=reg)
+        return (sol, info.iterations) if return_iters else sol
     if qp.Q.device.type == "cpu":
         return solve_batched_fused_plain(
             qp, max_iters=max_iters, tol=tol, reg=reg, return_iters=return_iters

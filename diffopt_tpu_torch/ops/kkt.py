@@ -9,9 +9,11 @@ Counterpart of ``diffopt_tpu/ops/kkt.py``, batch-first: every function takes
   cotangents
 * ``qp_polish``     — active-set polish of a solved batch
 
-Ported methods: ``"ldl"`` (the kernels of ``ops/cuda/chol.py``) and ``"lu"``
-(``torch.linalg``, as the JAX package leaves it to the library). ``"auto"``,
-``"lstsq"`` and ``"qr"`` are not ported yet.
+Methods: ``"ldl"`` (the kernels of ``ops/cuda/chol.py``); ``"lu"``,
+``"lstsq"``, ``"qr"`` or a callable ``(M, rhs) -> x`` (``ops/linalg.py``:
+``torch.linalg``, as the JAX package leaves them to the library); and
+``"auto"``, which decides per instance: an LP (``Q == 0``, singular KKT
+matrix) gets the least-squares solve, every other instance LU.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ir import QPSolution, QPTangent, QuadProgram
+from ..utils.config import get_config
 from ..utils.precision import full_precision
+from . import linalg
 from .cuda import chol
 
 Tensor = torch.Tensor
@@ -61,11 +65,37 @@ def _ldl_fits(qp: QuadProgram) -> bool:
     return qp.num_vars + qp.num_ineq + qp.num_eq <= chol.ldl_max_n(qp.Q.dtype)
 
 
-def _check_method(method: str) -> None:
-    if method not in ("ldl", "lu"):
-        raise NotImplementedError(
-            f"KKT solve method {method!r} is not ported yet (available: 'ldl', 'lu')"
-        )
+def _auto_solve(qp: QuadProgram, J: Tensor, rhs: Tensor, refine_iters: int) -> Tensor:
+    """Per-instance LP-vs-QP dispatch: an all-zero ``Q`` (singular KKT matrix)
+    takes the least-squares solve, everything else LU. Instances are chosen
+    by select, so the NaN that LU leaves on a singular instance never reaches
+    a lane that took ``lstsq``; a branch that no instance needs is skipped
+    (one device-to-host copy of the LP count decides that)."""
+    is_lp = qp.Q.flatten(1).abs().amax(dim=1) == 0.0
+    n_lp = int(is_lp.sum())
+    _auto_solve.host_syncs += 1
+    if n_lp == 0:
+        return linalg.solve(J, rhs, "lu", refine_iters=refine_iters)
+    x_lp = linalg.solve(J, rhs, "lstsq", refine_iters=refine_iters)
+    if n_lp == qp.batch_size:
+        return x_lp
+    return torch.where(is_lp[:, None], x_lp, linalg.solve(J, rhs, "lu", refine_iters=refine_iters))
+
+
+_auto_solve.host_syncs = 0
+
+
+def _kkt_solve(qp: QuadProgram, sol: QPSolution, rhs: Tensor, method, refine_iters: int, transpose: bool) -> Tensor:
+    """``J^-1 rhs`` (or ``J'^-1 rhs``) by ``method``."""
+    if method == "ldl" and _ldl_fits(qp):
+        return qp_kkt_solve_ldl(qp, sol, rhs, transpose=transpose, refine_iters=max(refine_iters, 2))
+    J = kkt_jacobian(qp, sol)
+    if transpose:
+        J = _t(J)
+    if method == "auto":
+        return _auto_solve(qp, J, rhs, refine_iters)
+    # "ldl" past the kernels' envelope takes the LU route, by size
+    return linalg.solve(J, rhs, "lu" if method == "ldl" else method, refine_iters=refine_iters)
 
 
 @full_precision
@@ -84,25 +114,19 @@ def kkt_jacobian(qp: QuadProgram, sol: QPSolution) -> Tensor:
     return torch.cat([row0, row1, row2], dim=-2)
 
 
-def _lu_solve(M: Tensor, rhs: Tensor, refine_iters: int) -> Tensor:
-    """Batched dense LU solve with optional iterative refinement; residuals
-    and the running solution are accumulated in f64."""
-    lu, piv = torch.linalg.lu_factor(M)
-    solve = lambda r: torch.linalg.lu_solve(lu, piv, r[..., None])[..., 0]
-    x = solve(rhs)
-    if refine_iters:
-        wdt = M.dtype
-        Mr, rhsr, xr = M.double(), rhs.double(), x.double()
-        for _ in range(refine_iters):
-            r = rhsr - _mv(Mr, xr)
-            xr = xr + solve(r.to(wdt)).double()
-        x = xr.to(wdt)
-    return x
+def qp_forward_rhs(sol: QPSolution, dqp: QPTangent) -> Tensor:
+    """Right-hand side ``[rhs1; rhs2; rhs3]`` of the forward system (see
+    :func:`qp_forward`)."""
+    z, lam, nu = sol.z, sol.lam, sol.nu
+    rhs1 = _mv(dqp.dQ, z) + dqp.dq + _rmv(dqp.dG, lam) + _rmv(dqp.dA, nu)
+    rhs2 = lam * (_mv(dqp.dG, z) - dqp.dh)
+    rhs3 = _mv(dqp.dA, z) - dqp.db
+    return torch.cat([rhs1, rhs2, rhs3], dim=-1)
 
 
 @full_precision
 def qp_forward(
-    qp: QuadProgram, sol: QPSolution, dqp: QPTangent, *, method: str = "lu", refine_iters: int = 0
+    qp: QuadProgram, sol: QPSolution, dqp: QPTangent, *, method="lu", refine_iters: int = 0
 ) -> KKTSplit:
     """Forward (JVP) sensitivity: directional derivative of (z, lam, nu) along
     the data perturbation ``dqp``. Solves ``J [dz; dlam; dnu] = -rhs`` with::
@@ -111,30 +135,17 @@ def qp_forward(
         rhs2 = lam .* (dG z - dh)
         rhs3 = dA z - db
     """
-    _check_method(method)
-    z, lam, nu = sol.z, sol.lam, sol.nu
-    rhs1 = _mv(dqp.dQ, z) + dqp.dq + _rmv(dqp.dG, lam) + _rmv(dqp.dA, nu)
-    rhs2 = lam * (_mv(dqp.dG, z) - dqp.dh)
-    rhs3 = _mv(dqp.dA, z) - dqp.db
-    rhs = torch.cat([rhs1, rhs2, rhs3], dim=-1)
-    if method == "ldl" and _ldl_fits(qp):
-        d = -qp_kkt_solve_ldl(qp, sol, rhs, transpose=False, refine_iters=max(refine_iters, 2))
-    else:
-        d = -_lu_solve(kkt_jacobian(qp, sol), rhs, refine_iters)
+    d = -_kkt_solve(qp, sol, qp_forward_rhs(sol, dqp), method, refine_iters, transpose=False)
     return _split(d, qp.num_vars, qp.num_ineq)
 
 
 @full_precision
 def qp_reverse_system(
-    qp: QuadProgram, sol: QPSolution, seed: KKTSplit, *, method: str = "lu", refine_iters: int = 0
+    qp: QuadProgram, sol: QPSolution, seed: KKTSplit, *, method="lu", refine_iters: int = 0
 ) -> KKTSplit:
     """Solve the adjoint system ``J' g = -[dl/dz; dl/dlam; dl/dnu]``."""
-    _check_method(method)
     rhs = torch.cat([seed.dz, seed.dlam, seed.dnu], dim=-1)
-    if method == "ldl" and _ldl_fits(qp):
-        g = -qp_kkt_solve_ldl(qp, sol, rhs, transpose=True, refine_iters=max(refine_iters, 2))
-    else:
-        g = -_lu_solve(_t(kkt_jacobian(qp, sol)), rhs, refine_iters)
+    g = -_kkt_solve(qp, sol, rhs, method, refine_iters, transpose=True)
     return _split(g, qp.num_vars, qp.num_ineq)
 
 
@@ -170,7 +181,7 @@ def qp_reverse(
     dlam_seed: Tensor | None = None,
     dnu_seed: Tensor | None = None,
     *,
-    method: str = "lu",
+    method="lu",
     refine_iters: int = 0,
 ) -> Tuple[QPTangent, KKTSplit]:
     """Reverse (VJP) sensitivity: cotangents of the data given cotangents of
@@ -255,11 +266,11 @@ def qp_kkt_solve_ldl(
     ``rhs`` is the true right-hand side (NOT pre-scaled). Refinement steps
     use true-J matvecs to remove the regularization and lam-floor bias.
     """
-    f64 = qp.Q.dtype == torch.float64
+    cfg = get_config()
     if lam_floor is None:
-        lam_floor = 1e-12 if f64 else 1e-6
+        lam_floor = cfg.ldl_lam_floor(qp.Q.dtype)
     if reg is None:
-        reg = 1e-11 if f64 else 1e-6
+        reg = cfg.ldl_reg(qp.Q.dtype)
     n, m = qp.num_vars, qp.num_ineq
 
     K, lam_e = _kkt_symmetric(qp, sol, lam_floor, reg)
@@ -329,7 +340,7 @@ def qp_polish(qp: QuadProgram, sol: QPSolution, *, reg: float | None = None) -> 
         L, dvec = chol.ldl_batched(K)
         solve = lambda r: chol.ldl_solve_batched(L, dvec, r)
     else:
-        lu, piv = torch.linalg.lu_factor(K)
+        lu, piv, _ = torch.linalg.lu_factor_ex(K)
         solve = lambda r: torch.linalg.lu_solve(lu, piv, r[..., None])[..., 0]
 
     w = solve(rhs)

@@ -8,9 +8,9 @@ whole config with :func:`set_config` or scoped-ly with :func:`use_config`::
     with use_config(dataclasses.replace(get_config(), nan_on_unconverged=True)):
         sol = solve_qp_batched(qp)  # unconverged instances come back as NaN
 
-A field is added here by the module that first reads it. The fused solver and
-the LDL' adjoint solve keep their per-dtype ``tol / reg / lam_floor`` as
-constants beside their code, as the JAX package does.
+A field is added here by the module that first reads it. The fused solver
+keeps its per-dtype ``tol / reg`` as constants beside its code, as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -23,10 +23,26 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class DiffOptConfig:
+    # --- QP/KKT differentiation (qp_diff / ops/kkt) -------------------------
+    # read by qp_diff._resolve_method and solve.solve_qp. 'auto' routes LPs
+    # (||Q|| == 0, singular KKT matrix) to the least-squares solve
+    kkt_method: str = "auto"  # 'auto' | 'lu' | 'lstsq' | 'qr' | 'ldl'
+    kkt_refine_iters: int = 0  # read by solve.solve_qp
+    # read by ops/kkt.py::qp_kkt_solve_ldl
+    ldl_lam_floor_f64: float = 1e-12
+    ldl_lam_floor_f32: float = 1e-6
+    ldl_reg_f64: float = 1e-11
+    ldl_reg_f32: float = 1e-6
+
     # --- embedded QP interior-point solver ----------------------------------
-    # read by solvers/qp.py::kkt_metrics (converged = residuals <= 10 * tol)
+    # read by solvers/qp.py::solve_batched (the staged solver)
+    qp_max_iters: int = 50
+    # read by solvers/qp.py::solve_batched and ::kkt_metrics (converged =
+    # residuals <= 10 * tol)
     qp_tol_f64: float = 1e-9
     qp_tol_f32: float = 5e-6  # complementarity floors at ~sqrt(eps_f32)
+    qp_reg_f64: float = 1e-11
+    qp_reg_f32: float = 1e-7
 
     # --- solve-status semantics ----------------------------------------------
     # NaN-poison the solution (and hence anything differentiated through it)
@@ -38,6 +54,15 @@ class DiffOptConfig:
     # ------------------------------------------------------------------------
     def qp_tol(self, dtype) -> float:
         return self.qp_tol_f64 if dtype == torch.float64 else self.qp_tol_f32
+
+    def qp_reg(self, dtype) -> float:
+        return self.qp_reg_f64 if dtype == torch.float64 else self.qp_reg_f32
+
+    def ldl_lam_floor(self, dtype) -> float:
+        return self.ldl_lam_floor_f64 if dtype == torch.float64 else self.ldl_lam_floor_f32
+
+    def ldl_reg(self, dtype) -> float:
+        return self.ldl_reg_f64 if dtype == torch.float64 else self.ldl_reg_f32
 
 
 DEFAULT_CONFIG = DiffOptConfig()

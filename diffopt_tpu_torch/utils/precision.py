@@ -17,6 +17,17 @@ from functools import wraps
 import torch
 
 
+def residual_dtype(dtype):
+    """Accumulation dtype for iterative-refinement residuals.
+
+    Classic mixed-precision refinement: factor and solve in the working dtype,
+    accumulate residuals (and the solution estimate) in a wider one, so the
+    refined forward error floors at the storage epsilon of the working dtype
+    instead of ``cond * eps``. PyTorch always has float64, so this is float64
+    for every working dtype — what the JAX package does with x64 enabled."""
+    return torch.float64
+
+
 def full_precision(fn):
     """Decorator: run ``fn`` with TF32 matmuls off and f32 matmul precision
     ``"highest"``."""

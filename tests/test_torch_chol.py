@@ -1,7 +1,8 @@
-"""Port parity: the plain versions of the LDL' kernels
+"""Port parity: the plain versions of the Cholesky and LDL' kernels
 (``diffopt_tpu_torch.ops.cuda.chol``) against the Pallas kernels of the JAX
 package in interpret mode, on the same numpy inputs, f64."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,7 +33,7 @@ def _jax_factor(N):
     """(K, rng, L, d) with the Pallas factor of K, computed once per N."""
     if N not in _jax_factors:
         K, rng = _quasi_definite(8, N, seed=N)
-        Lj, dj = jchol.ldl_batched(jnp.asarray(K))
+        Lj, dj = jax.jit(jchol.ldl_batched)(jnp.asarray(K))
         _jax_factors[N] = (K, rng, Lj, dj)
     return _jax_factors[N]
 
@@ -57,7 +58,7 @@ def test_ldl_factor_plain_matches_pallas(N):
 def test_ldl_solve_plain_matches_pallas(N, k):
     K, rng, Lj, dj = _jax_factor(N)
     rhs = rng.normal(size=(8, N, k))
-    xj = jchol.ldl_solve_batched(Lj, dj, jnp.asarray(rhs))
+    xj = jax.jit(jchol.ldl_solve_batched)(Lj, dj, jnp.asarray(rhs))
     L, d = torch.tensor(np.asarray(Lj)), torch.tensor(np.asarray(dj))
     xt = tchol.ldl_solve_batched(L, d, torch.from_numpy(rhs))
     # same factor, same substitution order in f64: agreement to rounding
@@ -85,3 +86,82 @@ def test_ldl_envelope_and_shape_checks():
         tchol.ldl_batched(torch.zeros(2, 3, 4))
     with pytest.raises(ValueError):
         tchol.ldl_solve_batched(torch.zeros(2, 3, 3), torch.zeros(2, 4), torch.zeros(2, 3))
+
+
+# --- Cholesky pair -----------------------------------------------------------
+
+
+def _spd(B, n, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(B, n, n))
+    return X @ np.swapaxes(X, 1, 2) + n * np.eye(n), rng
+
+
+_jax_chol = {}
+
+
+def _jax_cholesky(n):
+    """(H, rng, L) with the Pallas Cholesky factor of H, computed once per n
+    (n = 8 fits the kernel's tiling, n = 5 goes through its pad-to-8 path)."""
+    if n not in _jax_chol:
+        H, rng = _spd(8, n, seed=100 + n)
+        _jax_chol[n] = (H, rng, jax.jit(jchol.cholesky_batched)(jnp.asarray(H)))
+    return _jax_chol[n]
+
+
+@pytest.mark.parametrize("n", [5, 8])
+def test_cholesky_factor_plain_matches_pallas(n):
+    H, _, Lj = _jax_cholesky(n)
+    Lt = tchol.cholesky_batched(torch.from_numpy(H)).numpy()
+    # same elimination order in f64: agreement to rounding
+    np.testing.assert_allclose(Lt, np.asarray(Lj), rtol=0, atol=1e-12)
+    # lower triangular with zeros above, and a factorisation of H
+    assert np.array_equal(np.triu(Lt, 1), np.zeros_like(Lt))
+    np.testing.assert_allclose(Lt @ np.swapaxes(Lt, 1, 2), H, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("n", [5, 8])
+def test_cholesky_solve_plain_matches_pallas(n, k):
+    H, rng, Lj = _jax_cholesky(n)
+    rhs = rng.normal(size=(8, n, k))
+    xj = jax.jit(jchol.cholesky_solve_batched)(Lj, jnp.asarray(rhs))
+    xt = tchol.cholesky_solve_batched(torch.tensor(np.asarray(Lj)), torch.from_numpy(rhs)).numpy()
+    # same factor, same substitution order in f64: agreement to rounding
+    np.testing.assert_allclose(xt, np.asarray(xj), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(H @ xt, rhs, rtol=0, atol=1e-12)
+
+
+def test_cholesky_not_positive_definite_gives_nan_and_no_exception():
+    H, _ = _spd(4, 6, seed=7)
+    H[1] = -H[1]  # first pivot negative: everything NaN
+    H[2, 3, 3] = -50.0  # pivot 3 fails: columns 0..2 stay finite
+    before = (tchol.cholesky_batched.launches, tchol.cholesky_solve_batched.launches)
+    L = tchol.cholesky_batched(torch.from_numpy(H))
+    fin = torch.isfinite(L)
+    assert bool(fin[0].all() and fin[3].all())
+    low = torch.tril(torch.ones(6, 6, dtype=torch.bool))
+    assert not bool(fin[1][low].any())
+    assert bool(fin[2][:, :3].all()) and not bool(fin[2][:, 3:][low[:, 3:]].any())
+    assert bool((L[~low.expand_as(L)] == 0).all())  # zeros above the diagonal even there
+    # a solve with such a factor is NaN throughout: what the solver's guard looks for
+    x = tchol.cholesky_solve_batched(L, torch.ones(4, 6, dtype=torch.float64))
+    assert x.shape == (4, 6)
+    assert bool(torch.isnan(x[1]).all() and torch.isnan(x[2]).all() and torch.isfinite(x[0]).all())
+    # the library route past the kernel's envelope leaves the same pattern
+    Llib = tchol._cholesky_library(torch.from_numpy(H))
+    assert torch.equal(torch.isfinite(Llib), fin)
+    np.testing.assert_allclose(Llib[fin].numpy(), L[fin].numpy(), rtol=0, atol=1e-12)
+    # a CPU tensor never launches a kernel
+    assert (tchol.cholesky_batched.launches, tchol.cholesky_solve_batched.launches) == before
+
+
+def test_cholesky_envelope_and_shape_checks():
+    assert tchol.cholesky_max_n(torch.float32) >= 230
+    assert 160 <= tchol.cholesky_max_n(torch.float64) < tchol.cholesky_max_n(torch.float32)
+    # the sizes the staged solver uses at full width need little shared memory
+    assert tchol._chol_factor_smem_bytes(64, 4) < 2048 and tchol._chol_solve_smem_bytes(64, 16, 4) < 24 * 1024
+    with pytest.raises(ValueError):
+        tchol.cholesky_batched(torch.zeros(2, 3, 4))
+    with pytest.raises(ValueError):
+        tchol.cholesky_solve_batched(torch.zeros(2, 3, 3), torch.zeros(2, 4))

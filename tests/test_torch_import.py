@@ -21,20 +21,45 @@ print("TORCH", "torch" in sys.modules)
 """
 
 
-@pytest.mark.parametrize("module", ["diffopt_tpu_torch", "chip_smoke"])
-def test_import_pulls_in_no_jax(module):
+_MODULES = ["diffopt_tpu_torch", "chip_smoke"]
+
+
+@pytest.fixture(scope="module")
+def probes():
+    """One interpreter per module, started together (each takes seconds to import torch)."""
     # -S -E: skip site hooks and environment, so that nothing but the module
     # under test decides what gets imported; site-packages is added back by hand
     import torch
 
     site = str(pathlib.Path(torch.__file__).resolve().parents[1])
-    code = "import sys; sys.path.append(%r)\n" % site + _PROBE.format(root=str(ROOT), module=module)
-    out = subprocess.run(
-        [sys.executable, "-S", "-E", "-c", code], capture_output=True, text=True, timeout=300, cwd=str(ROOT)
+    procs = {}
+    for module in _MODULES:
+        code = "import sys; sys.path.append(%r)\n" % site + _PROBE.format(root=str(ROOT), module=module)
+        procs[module] = subprocess.Popen(
+            [sys.executable, "-S", "-E", "-c", code], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=str(ROOT),
+        )
+    # and the smoke script itself, as a user would start it on a machine without a card
+    procs["run chip_smoke"] = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py")], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(ROOT),
     )
-    assert out.returncode == 0, out.stderr
-    assert "BAD []" in out.stdout, out.stdout
-    assert "TORCH True" in out.stdout
+    results = {}
+    for module, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        results[module] = (proc.returncode, out, err)
+    return results
+
+
+@pytest.mark.parametrize("module", _MODULES)
+def test_import_pulls_in_no_jax(probes, module):
+    returncode, out, err = probes[module]
+    assert returncode == 0, err
+    assert "BAD []" in out, out
+    assert "TORCH True" in out
 
 
 def _imports(path):
@@ -59,18 +84,20 @@ def test_no_import_statement_names_jax():
 def test_every_port_module_imports_without_a_compiler():
     import importlib
 
+    names = []
     for f in sorted((ROOT / "diffopt_tpu_torch").rglob("*.py")):
         rel = f.relative_to(ROOT).with_suffix("")
-        name = ".".join(rel.parts[:-1] if rel.name == "__init__" else rel.parts)
-        importlib.import_module(name)
+        names.append(".".join(rel.parts[:-1] if rel.name == "__init__" else rel.parts))
+        importlib.import_module(names[-1])
+    # the modules of the staged QP path are among them
+    for mod in ("api", "parameters", "qp_diff", "ops.linalg", "solvers.qp", "utils.batching", "ops.cuda.chol"):
+        assert f"diffopt_tpu_torch.{mod}" in names
     from diffopt_tpu_torch.ops.cuda import _build
 
     assert _build.build_seconds is None  # nothing was built by importing
 
 
-def test_chip_smoke_fails_without_a_card():
-    out = subprocess.run(
-        [sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True, text=True, timeout=300, cwd=str(ROOT)
-    )
-    assert out.returncode != 0
-    assert '"ok": true' not in out.stdout
+def test_chip_smoke_fails_without_a_card(probes):
+    returncode, out, _ = probes["run chip_smoke"]
+    assert returncode != 0
+    assert '"ok": true' not in out

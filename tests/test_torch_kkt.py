@@ -17,7 +17,7 @@ from diffopt_tpu_torch.solvers import qp as tqp
 
 torch.set_num_threads(1)
 
-B, n, m, p = 8, 6, 4, 2
+B, n, m, p = 8, 5, 2, 1  # n + m + p = 8: the Pallas LDL' kernels need no padding, and compile fastest
 
 
 @pytest.fixture(scope="module")
@@ -64,8 +64,7 @@ def _js(sol):
 
 def test_kkt_jacobian_and_residual_match(problem):
     data, jq, tight, _, _ = problem
-    J = jax.vmap(jkkt.kkt_jacobian)(jq, _js(tight))
-    r = jax.vmap(jkkt.kkt_residual)(jq, _js(tight))
+    J, r = jax.jit(lambda q, s: (jax.vmap(jkkt.kkt_jacobian)(q, s), jax.vmap(jkkt.kkt_residual)(q, s)))(jq, _js(tight))
     # pure assembly / matvecs: identical up to summation order
     np.testing.assert_allclose(tkkt.kkt_jacobian(_tq(data), _ts(tight)).numpy(), np.asarray(J), atol=1e-13)
     np.testing.assert_allclose(tkkt.kkt_residual(_tq(data), _ts(tight)).numpy(), np.asarray(r), atol=1e-13)
@@ -73,8 +72,9 @@ def test_kkt_jacobian_and_residual_match(problem):
 
 def test_kkt_metrics_matches_and_reports_iterations(problem):
     data, jq, tight, loose, _ = problem
+    jmetrics = jax.jit(jqp.kkt_metrics)
     for sol in (tight, loose):
-        ji = jqp.kkt_metrics(jq, _js(sol))
+        ji = jmetrics(jq, _js(sol))
         ti = tqp.kkt_metrics(_tq(data), _ts(sol))
         for name in ("primal_residual", "dual_residual", "duality_gap"):
             # sums and maxima of a few f64 terms
@@ -103,7 +103,7 @@ def test_kkt_metrics_flags_nonfinite_and_infeasible(problem):
 
 def test_qp_polish_matches(problem):
     data, jq, _, loose, _ = problem
-    jp = jax.vmap(lambda q, s: jkkt.qp_polish(q, s))(jq, _js(loose))
+    jp = jax.jit(jax.vmap(lambda q, s: jkkt.qp_polish(q, s)))(jq, _js(loose))
     tp = tkkt.qp_polish(_tq(data), _ts(loose))
     # both run one LDL' factor + 2 refinements on the same active set; the
     # polished point solves a well-conditioned linear system to ~1e-12
@@ -117,31 +117,45 @@ def test_qp_polish_matches(problem):
     assert float(res_new.median()) < 1e-2 * float(res_old.median())
 
 
+_jax_reverse = {}
+
+
+def _reverse_both(problem, method):
+    """(seeds, JAX cotangents, JAX adjoint solution) of ``qp_reverse`` under
+    ``vmap``, computed once per method (the LDL' route compiles the Pallas
+    kernels in interpret mode)."""
+    if method not in _jax_reverse:
+        data, jq, tight, _, rng = problem
+        seeds = [rng.normal(size=(B, k)) for k in (n, m, p)]
+        jg, jadj = jax.jit(jax.vmap(
+            lambda q, s, a, b_, c: jkkt.qp_reverse(q, s, a, b_, c, method=method, refine_iters=2)
+        ))(jq, _js(tight), *map(jnp.asarray, seeds))
+        _jax_reverse[method] = (seeds, jg, jadj)
+    return _jax_reverse[method]
+
+
 def test_qp_kkt_solve_ldl_matches(problem):
     data, jq, tight, _, rng = problem
-    rhs = rng.normal(size=(B, n + m + p))
-    jx = jax.vmap(lambda q, s, r: jkkt.qp_kkt_solve_ldl(q, s, r, transpose=False))(
-        jq, _js(tight), jnp.asarray(rhs)
-    )
-    tx = tkkt.qp_kkt_solve_ldl(_tq(data), _ts(tight), torch.from_numpy(rhs.copy()), transpose=False)
+    # the adjoint solution of qp_reverse(method="ldl") is -qp_kkt_solve_ldl(seed, transpose=True)
+    seeds, _, jadj = _reverse_both(problem, "ldl")
+    rhs = np.concatenate(seeds, axis=1)
+    jx = -np.concatenate([np.asarray(a) for a in jadj], axis=1)
+    txt = tkkt.qp_kkt_solve_ldl(_tq(data), _ts(tight), torch.from_numpy(rhs.copy()), transpose=True)
     # J is ill-conditioned on inactive rows (slack * dlam with lam at the
     # floor); both sides refine twice from the same factorisation
-    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-6, atol=1e-8)
-    # both J x = rhs and (the adjoint route, compared with JAX in
-    # test_qp_reverse_matches) J' x = rhs are solved to the residual
+    np.testing.assert_allclose(txt.numpy(), jx, rtol=1e-6, atol=1e-8)
+    # both J' x = rhs and J x = rhs are solved to the residual (the forward
+    # route is tied to the adjoint one in test_qp_forward_is_adjoint_of_reverse)
     J = tkkt.kkt_jacobian(_tq(data), _ts(tight))
-    np.testing.assert_allclose(torch.einsum("bij,bj->bi", J, tx).numpy(), rhs, atol=1e-7)
-    txt = tkkt.qp_kkt_solve_ldl(_tq(data), _ts(tight), torch.from_numpy(rhs.copy()), transpose=True)
     np.testing.assert_allclose(torch.einsum("bji,bj->bi", J, txt).numpy(), rhs, atol=1e-7)
+    tx = tkkt.qp_kkt_solve_ldl(_tq(data), _ts(tight), torch.from_numpy(rhs.copy()), transpose=False)
+    np.testing.assert_allclose(torch.einsum("bij,bj->bi", J, tx).numpy(), rhs, atol=1e-7)
 
 
 @pytest.mark.parametrize("method", ["ldl", "lu"])
 def test_qp_reverse_matches(problem, method):
     data, jq, tight, _, rng = problem
-    seeds = [rng.normal(size=(B, k)) for k in (n, m, p)]
-    jg, jadj = jax.vmap(
-        lambda q, s, a, b_, c: jkkt.qp_reverse(q, s, a, b_, c, method=method, refine_iters=2)
-    )(jq, _js(tight), *map(jnp.asarray, seeds))
+    seeds, jg, jadj = _reverse_both(problem, method)
     tg, tadj = tkkt.qp_reverse(
         _tq(data), _ts(tight), *(torch.from_numpy(s.copy()) for s in seeds), method=method, refine_iters=2
     )
@@ -193,6 +207,18 @@ def test_qp_forward_is_adjoint_of_reverse(problem, method):
 
 
 def test_unported_methods_raise(problem):
-    data, _, tight, _, _ = problem
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tkkt.qp_reverse(_tq(data), _ts(tight), torch.zeros(B, n, dtype=torch.float64), method="lstsq")
+    """Every method of the reference is there: 'lstsq', 'qr', 'auto' and a
+    callable give the LU result on these well-posed QPs; only an unknown name
+    raises."""
+    data, _, tight, _, rng = problem
+    seed = torch.from_numpy(rng.normal(size=(B, n)))
+    ref, _ = tkkt.qp_reverse(_tq(data), _ts(tight), seed, method="lu")
+    syncs = tkkt._auto_solve.host_syncs
+    for method in ("lstsq", "qr", "auto", lambda M, r: torch.linalg.solve(M, r)):
+        g, _ = tkkt.qp_reverse(_tq(data), _ts(tight), seed, method=method, refine_iters=1)
+        for name in ("dQ", "dq", "dA", "db", "dG", "dh"):
+            # lstsq squares the condition number of J (1e4 here); one refinement pass repairs it
+            np.testing.assert_allclose(getattr(g, name).numpy(), getattr(ref, name).numpy(), rtol=0, atol=1e-8, err_msg=name)
+    assert tkkt._auto_solve.host_syncs == syncs + 1  # 'auto' reads the LP count once
+    with pytest.raises(ValueError, match="unknown solve method"):
+        tkkt.qp_reverse(_tq(data), _ts(tight), seed, method="cholesky")

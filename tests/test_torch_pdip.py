@@ -2,6 +2,9 @@
 (``diffopt_tpu_torch.ops.cuda.pdip``) against the Pallas kernel of the JAX
 package in interpret mode, on the same numpy inputs."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,11 +32,15 @@ def _random_batch(B, n, m, p, seed=0, dtype=np.float64, h_shift=2.0):
     return {k: v.astype(dtype) for k, v in data.items()}
 
 
+@functools.partial(jax.jit, static_argnames="max_iters")
+def _jax_fused(qp, max_iters):
+    """The Pallas kernel (interpret mode) under jit: one compile of the whole
+    call per shape and dtype, shared by the tests below."""
+    return jax_fused(qp, max_iters=max_iters, return_iters=True)
+
+
 def _both(data, max_iters):
-    jsol, jit = jax_fused(
-        QuadProgram(**{k: jnp.asarray(v) for k, v in data.items()}),
-        max_iters=max_iters, return_iters=True,
-    )
+    jsol, jit = _jax_fused(QuadProgram(**{k: jnp.asarray(v) for k, v in data.items()}), max_iters=max_iters)
     tdt = torch.float64 if data["Q"].dtype == np.float64 else torch.float32
     tsol, tit = tpdip.solve_batched_fused(
         dtt.convert.quadprogram_from_numpy(data, dtype=tdt, device="cpu"),
@@ -42,7 +49,7 @@ def _both(data, max_iters):
     return jsol, np.asarray(jit), tsol, tit.numpy()
 
 
-@pytest.mark.parametrize("shape,seed", [((16, 6, 4, 2), 0), ((8, 5, 3, 2), 3)])
+@pytest.mark.parametrize("shape,seed", [((16, 6, 4, 2), 0), ((16, 6, 4, 2), 3)])
 def test_plain_pdip_matches_pallas_f64(shape, seed):
     data = _random_batch(*shape, seed=seed)
     jsol, jit, tsol, tit = _both(data, max_iters=30)
@@ -83,22 +90,47 @@ def test_plain_pdip_iteration_cap_and_best_iterate():
 
 
 def test_fused_refuses_empty_blocks_and_oversize():
+    """What the fused kernel does not take (an empty block, n = 144 past its
+    register tiles) it hands, by shape, to
+    the staged solver: same result as calling that solver, no kernel launch."""
+    from diffopt_tpu_torch.solvers import qp as tqp
+
     qp = dtt.convert.quadprogram_from_numpy(
         _random_batch(2, 4, 3, 2), dtype=torch.float64, device="cpu"
     )
     no_eq = dtt.QuadProgram(qp.Q, qp.q, qp.A[:, :0], qp.b[:, :0], qp.G, qp.h)
     no_ineq = dtt.QuadProgram(qp.Q, qp.q, qp.A, qp.b, qp.G[:, :0], qp.h[:, :0])
-    for bad in (no_eq, no_ineq):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tpdip.solve_batched_fused(bad)
-    # 144: past the 128 rows of the kernel's register tiles; 400: past 227 KB of shared memory too
-    for n in (144, 400):
-        big = dtt.QuadProgram(
-            torch.zeros(1, n, n), torch.zeros(1, n), torch.zeros(1, 1, n), torch.zeros(1, 1),
-            torch.zeros(1, 1, n), torch.zeros(1, 1),
-        )
-        with pytest.raises(NotImplementedError, match="envelope"):
-            tpdip.solve_batched_fused(big)
+    rng = np.random.default_rng(0)
+    cases = [no_eq, no_ineq]
+    assert not tpdip.in_envelope(400, 1, 1, 8)
+    for n in (144,):
+        assert not tpdip.in_envelope(n, 1, 1, 8)
+        X = torch.from_numpy(rng.normal(size=(1, n, 8)))
+        cases.append(dtt.QuadProgram(
+            X @ X.transpose(1, 2) + torch.eye(n, dtype=torch.float64), torch.ones(1, n, dtype=torch.float64),
+            torch.ones(1, 1, n, dtype=torch.float64), torch.ones(1, 1, dtype=torch.float64),
+            -torch.eye(n, dtype=torch.float64)[None, :1], torch.ones(1, 1, dtype=torch.float64),
+        ))
+    assert tpdip.in_envelope(4, 3, 2, 8) and not tpdip.in_envelope(4, 0, 2, 8) and not tpdip.in_envelope(4, 3, 0, 8)
+    launches = tpdip.solve_batched_fused.launches
+    for case in cases:
+        sol, its = tpdip.solve_batched_fused(case, max_iters=30, return_iters=True)
+        ref, info = tqp.solve_batched(case, max_iters=30)
+        assert bool(info.converged.all())
+        assert all(torch.equal(a, b) for a, b in zip(sol.tensors(), ref.tensors()))
+        assert its.dtype == torch.int32 and torch.equal(its, info.iterations)
+        # and it is the solution: stationarity and feasibility to the solver's tolerance
+        assert float(tkkt_residual(case, sol)) < 1e-7
+    assert tpdip.solve_batched_fused.launches == launches
+    # the plain version itself is the fused algorithm and says what it needs
+    with pytest.raises(ValueError, match="m >= 1 and p >= 1"):
+        tpdip.solve_batched_fused_plain(no_eq)
+
+
+def tkkt_residual(qp, sol):
+    from diffopt_tpu_torch.ops import kkt
+
+    return kkt.kkt_residual(qp, sol).abs().max()
 
 
 def test_smem_envelope_of_main_size():

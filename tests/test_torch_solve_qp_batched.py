@@ -58,10 +58,10 @@ def both():
     3 are infeasible, with ``with_info`` and ``nan_on_unconverged`` (the Pallas
     kernels compile for tens of seconds in interpret mode, so every comparison
     with the JAX package below reads from this one run)."""
-    data = _partly_infeasible(8, 5, 3, 2, seed=3)
+    data = _partly_infeasible(8, 4, 3, 1, seed=3)
     with juse_config(dataclasses.replace(jget_config(), nan_on_unconverged=True)):
         jsol, jvjp, jinfo = jax.vjp(
-            lambda qp: dj.solve_qp_batched(qp, max_iters=30, with_info=True), _jq(data), has_aux=True
+            jax.jit(lambda qp: dj.solve_qp_batched(qp, max_iters=30, with_info=True)), _jq(data), has_aux=True
         )
         jvjp = jax.jit(jvjp)  # one compile of the backward pass for both seeds
         # NaN rows of the poisoned instances are seeded with zeros
@@ -192,13 +192,23 @@ def test_f32_gradients_close_to_f64():
 
 
 def test_empty_blocks_raise_not_implemented():
+    """With an empty block ``solve_qp_batched`` takes the staged route (nothing
+    raises) and differentiates the result like any other."""
     data = _random_batch(2, 4, 3, 2, seed=1)
     qp = _tq(data)
     no_ineq = dtt.QuadProgram(qp.Q, qp.q, qp.A, qp.b, qp.G[:, :0], qp.h[:, :0])
     no_eq = dtt.QuadProgram(qp.Q, qp.q, qp.A[:, :0], qp.b[:, :0], qp.G, qp.h)
-    for bad in (no_ineq, no_eq):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            dtt.solve_qp_batched(bad)
+    neither = dtt.QuadProgram(qp.Q, qp.q, qp.A[:, :0], qp.b[:, :0], qp.G[:, :0], qp.h[:, :0])
+    for case in (no_ineq, no_eq, neither):
+        a = case.map(lambda t: t.clone().requires_grad_())
+        sol, info = dtt.solve_qp_batched(a, with_info=True)
+        assert bool(info.converged.all()) and bool((info.iterations >= 1).all())
+        ga = torch.autograd.grad((sol.z ** 2).sum(), a.tensors())
+        b_ = case.map(lambda t: t.clone().requires_grad_())
+        gb = torch.autograd.grad((dtt.solve_qp(b_, method="lu").z ** 2).sum(), b_.tensors())
+        for x, y in zip(ga, gb):
+            # polished point + LDL' adjoint against the staged point + LU adjoint, f64
+            np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0, atol=1e-6)
 
 
 def test_make_batch_and_ir_helpers():
@@ -214,7 +224,12 @@ def test_make_batch_and_ir_helpers():
     assert qp.to(dtype=torch.float32).Q.dtype == torch.float32
     tan = dtt.QPTangent.zeros_like(qp)
     assert tan.dG.shape == qp.G.shape and float(tan.dQ.abs().sum()) == 0.0
-    made = dtt.QuadProgram.make(q=np.zeros((3, 4)), G=np.ones((3, 2, 4)), h=np.ones((3, 2)))
+    made = dtt.QuadProgram.make(q=np.zeros((3, 4)), G=np.ones((3, 2, 4)), h=np.ones((3, 2)), device="cpu")
     assert made.Q.shape == (3, 4, 4) and made.A.shape == (3, 0, 4) and made.num_eq == 0
+    # tensors decide where the program lands; plain arrays go to the card, and fail where there is none
+    assert dtt.QuadProgram.make(q=torch.zeros(2), h=[1.0], G=[[1.0, 0.0]]).G.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dtt.QuadProgram.make(q=np.zeros((3, 4)))
     back = dtt.convert.to_numpy(qp)
     assert set(back) == set(NAMES) and back["Q"].shape == (4, 6, 6)

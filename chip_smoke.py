@@ -29,8 +29,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    route; then, smaller, the p = 0 route of ``solve_qp_batched``, an LP batch
    through ``method="auto"``, the forward rule against a finite difference,
    ``QPDiffContext`` against the uncached verbs, and the n = 100 solve + VJP;
-6. prints one JSON line ``{"kernels": [...]}``, the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+6. the symmetric-cone path: the fused conic IPM (K6) against its plain
+   version (the SOCP of BASELINE config 3 in f32 at the full batch and in
+   f64, the SDP side 4 in f32 and f64, a layout with every symmetric kind and
+   a psd side-8 batch in f64), then ``solve_conic_batched`` forward + backward
+   on that SOCP at full width (B = 32768, n = 16, SOC(17), f32; launch counts,
+   converged share, f32 gradients of 512 instances against f64), the SDP
+   family at psd sides 4, 8 and 16 (B = 4096), and at small batches
+   ``solve_conic`` (staged IPM) against K6, its forward rule against a central
+   difference, ``ConicDiffContext``, ``lsqr`` past the LSQR threshold on the
+   staged solver's condensed route, ``ParametricProgram(kind="conic")`` and an
+   exp-cone program that must raise;
+7. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``
+   and ``{"kernels": [...]}``, the card's name and power limit, and as the
+   last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -150,7 +162,7 @@ def phase_build():
     from diffopt_tpu_torch.ops.cuda import _build
 
     t0 = time.perf_counter()
-    for name in ("chol", "ldl", "pdip"):
+    for name in ("chol", "conic_pdip", "ldl", "pdip"):
         _build.load(name)
     print(f"[build] nvcc, {time.perf_counter() - t0:.1f} s (into {_build.build_dir()})")
     for log in sorted(_build.build_dir().glob("*.nvcc.log")):
@@ -432,6 +444,31 @@ def phase_kernels_chol(batch, gen):
         del qp, H, At, Lh, Lhp, HiAt, S, Ls, Lsp
         torch.cuda.empty_cache()
 
+    # --- K4 / K5 at n = 34, k = 1: the gram route of the conic path (M'M of the SOCP's residual map) ---
+    ng = 2 * CONIC_N + 2
+    X = torch.randn(batch, ng, ng, dtype=torch.float32, device=DEVICE, generator=gen)
+    Hg = (X @ X.transpose(1, 2) / ng + torch.eye(ng, device=DEVICE)).contiguous()
+    rg = torch.randn(batch, ng, dtype=torch.float32, device=DEVICE, generator=gen)
+    Lg = chol.cholesky_batched(Hg)
+    Lgp, p4 = wall_ms(lambda: chol.cholesky_batched_plain(Hg))
+    xg = chol.cholesky_solve_batched(Lg, rg)
+    xgp, p5 = wall_ms(lambda: chol.cholesky_solve_batched_plain(Lg, rg))
+    e4, e5 = rel_err(Lg, Lgp), rel_err(xg, xgp)
+    gram = dict(n=ng, chol_factor_ms=time_ms(lambda: chol.cholesky_batched(Hg), reps=5),
+                chol_solve_ms=time_ms(lambda: chol.cholesky_solve_batched(Lg, rg), reps=5),
+                chol_factor_plain_ms=p4, chol_solve_plain_ms=p5,
+                chol_factor_library_ms=time_ms(lambda: torch.linalg.cholesky_ex(Hg), reps=2),
+                chol_solve_library_ms=time_ms(lambda: torch.cholesky_solve(rg[..., None], Lg), reps=2),
+                chol_factor_bound_ms=bound(batch * 4 * (ng * (ng + 1) // 2 + ng * ng), batch * ng**3 / 3)[0],
+                chol_solve_bound_ms=bound(batch * 4 * (ng * (ng + 1) // 2 + 2 * ng), batch * 2 * ng * ng)[0])
+    print(f"[kernels] chol_factor / chol_solve f32 B={batch} n={ng} k=1 (the conic gram route): relative diff {e4:.3e} /"
+          f" {e5:.3e}; {gram['chol_factor_ms']:.3f} ms / {gram['chol_solve_ms']:.3f} ms (bound {gram['chol_factor_bound_ms']:.3f}"
+          f" / {gram['chol_solve_bound_ms']:.3f} by bytes; plain {p4:.1f} / {p5:.1f} ms; cholesky_ex"
+          f" {gram['chol_factor_library_ms']:.3f}, cholesky_solve {gram['chol_solve_library_ms']:.3f} ms)")
+    check(e4 <= TOL_CHOL[torch.float32] and e5 <= TOL_CHOL_SOLVE[torch.float32], "Cholesky pair at n = 34 disagrees")
+    entries["gram34"] = gram
+    del X, Hg, rg, Lg, Lgp, xg, xgp
+
     # --- past n = 128: the factor works in shared memory ----------------------------
     nbig, Bb = 160, 256
     X = torch.randn(Bb, nbig, nbig, dtype=torch.float32, device=DEVICE, generator=gen)
@@ -531,8 +568,8 @@ def phase_main(batch, gen):
     steps = STEPS + 1
     per_step = {k: v / steps for k, v in launches.items()}
     print(f"[main] launches over {steps} steps: {launches} (per step {per_step})")
-    check(per_step == {"pdip_fused": 1, "ldl_factor": 2, "ldl_solve": 6, "chol_factor": 0, "chol_solve": 0},
-          f"unexpected launch counts {per_step}")
+    check(per_step == {"pdip_fused": 1, "ldl_factor": 2, "ldl_solve": 6, "chol_factor": 0, "chol_solve": 0,
+                       "conic_pdip": 0}, f"unexpected launch counts {per_step}")
 
     grads = [t.grad for t in qp.tensors()]
     check(all(g is not None and g.shape == t.shape for g, t in zip(grads, qp.tensors())), "missing gradient")
@@ -589,7 +626,8 @@ def phase_main(batch, gen):
 def reset_counts():
     """Every launch counter and host-sync counter of the port to 0; returns the objects that carry them."""
     from diffopt_tpu_torch.ops import kkt
-    from diffopt_tpu_torch.ops.cuda import chol, pdip
+    from diffopt_tpu_torch.ops.cuda import chol, conic_pdip, pdip
+    from diffopt_tpu_torch.solvers import conic_ipm
     from diffopt_tpu_torch.solvers import qp as qpsolver
 
     wrappers = {
@@ -598,10 +636,12 @@ def reset_counts():
         "ldl_solve": chol.ldl_solve_batched,
         "chol_factor": chol.cholesky_batched,
         "chol_solve": chol.cholesky_solve_batched,
+        "conic_pdip": conic_pdip.solve_tile_fused,
     }
     for w in wrappers.values():
         w.launches = 0
     qpsolver.solve_batched.host_syncs = 0
+    conic_ipm.solve_batched.host_syncs = 0
     kkt._auto_solve.host_syncs = 0
     return wrappers
 
@@ -662,7 +702,8 @@ def phase_staged(batch, gen):
           f" {syncs:.0f} device-to-host copies per step")
     # the start factors H and S and solves four times; a body factors both and solves seven times
     # (one of them with k = p right-hand sides); the default KKT route ('auto' -> LU) launches none
-    expect = {"pdip_fused": 0, "ldl_factor": 0, "ldl_solve": 0, "chol_factor": 2 + 2 * bodies, "chol_solve": 4 + 7 * bodies}
+    expect = {"pdip_fused": 0, "ldl_factor": 0, "ldl_solve": 0, "chol_factor": 2 + 2 * bodies, "chol_solve": 4 + 7 * bodies,
+              "conic_pdip": 0}
     check(per_step == expect, f"staged path: launch counts per step {per_step}, expected {expect}")
     check(syncs == bodies + 1, f"staged path: {syncs} host syncs per step, expected {bodies + 1}")
 
@@ -865,8 +906,8 @@ def phase_qp100(batch, gen):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {k: w.launches / (STEPS + 1) for k, w in wrappers.items()}
-    check(launches == {"pdip_fused": 1, "ldl_factor": 2, "ldl_solve": 6, "chol_factor": 0, "chol_solve": 0},
-          f"qp100: unexpected launches per step {launches}")
+    check(launches == {"pdip_fused": 1, "ldl_factor": 2, "ldl_solve": 6, "chol_factor": 0, "chol_solve": 0,
+                       "conic_pdip": 0}, f"qp100: unexpected launches per step {launches}")
     conv = float(info.converged.float().mean())
     med = sorted(times)[len(times) // 2]
     print(f"[qp100] B={B} n={n} m={m} p={p} (N={n + m + p}) f32 solve + VJP: {B / med:.1f} solves+VJPs per second (median step"
@@ -877,6 +918,383 @@ def phase_qp100(batch, gen):
     (dtt.solve_qp_batched(qs, max_iters=25, method="lu").z ** 2).sum().backward()
     grad_diff_share([t.grad[:sub] for t in qp.tensors()], [t.grad for t in qs.tensors()], "the LU route", "qp100")
     return {"solves_vjps_per_s": B / med, "step_ms": med * 1e3, "batch": B}
+
+
+# ---------------------------------------------------------------------------
+# The symmetric-cone path: K6 and solve_conic_batched
+# ---------------------------------------------------------------------------
+
+# K6 against its plain version, per instance over x, yC, s, relative to 1 + the largest entry of the plain result.
+# In f32 an interior-point iterate is determined only to the solver's tolerance, so the comparison is on the
+# distribution, as for TOL_PDIP. In f64 the SOCP agrees to rounding on every instance. On layouts with psd blocks
+# the two agree to about 2e-9 where they take the same number of steps; on the rare instance whose error lands on
+# the two sides of tol = 1e-9 in the two runs (1 of 1024 in the side-4 batch), one run takes one step more, and on a
+# degenerate instance that step moves the dual by up to 1e-5 (PERF.md, Findings). So there the f64 comparison holds the
+# distribution and the share of instances whose iteration counts differ.
+TOL_K6_F32 = {"median": 1e-4, "q99": 3e-2, "max": 0.5}
+TOL_K6_F64 = 1e-9
+TOL_K6_F64_PSD = {"median": 1e-12, "q99": 1e-8, "max": 1e-4, "iterations_differ": 0.01}
+# f32 gradients of the [conic] path against the same instances in f64, per instance relative to the largest entry
+TOL_CONIC_GRAD = {"median": 1e-3, "share_above_1e-2": 0.02}
+CONIC_N = 16  # the SOCP of BASELINE config 3: n = 16, one SOC block of dimension 17
+SDP_SIDES = (4, 8, 16)
+
+
+def conic_pdip_flops_per_iteration(n, p, l, soc_dims, psd_sides):
+    """Operations of one body of the fused conic IPM as the kernel arranges it: the LDL' of K, three
+    solves with one refinement pass (two with a psd block), the residuals and metrics, the W
+    applications, and per psd block of side d eight Jacobi eigendecompositions (three in the NT
+    scaling, one of lam, four step lengths; 6 d flops per rotation on the matrix and as many on the
+    vectors) and some twenty d x d products. The init factors and solves once and counts as one more
+    body."""
+    from diffopt_tpu_torch.ops.smalleig import _sweeps_for
+
+    mC = l + sum(soc_dims) + sum(d * (d + 1) // 2 for d in psd_sides)
+    N = n + p + mC
+    passes = 2 if psd_sides else 1
+    factor = N**3 / 3
+    solve = (1 + passes) * 2 * N * N + passes * 2 * (mC * n + p * n) + 12 * mC
+    residuals = 4 * (mC + p) * n + 20 * (n + mC)
+    cone = sum(20 * d for d in soc_dims) * 8
+    for d in psd_sides:
+        sweeps = _sweeps_for(d, torch.float32)
+        cone += 8 * sweeps * d * (d - 1) / 2 * 12 * d + 20 * 2 * d**3
+    return factor + 3 * solve + residuals + cone
+
+
+def internal_batch(cp):
+    """The fused kernel's inputs for a ConeProgram batch: rows through the static transform R."""
+    from diffopt_tpu_torch.solvers import conic_ipm
+
+    R, p, l, socs, psds = conic_ipm._row_transform(cp.cones)
+    R = torch.as_tensor(R, dtype=cp.A.dtype, device=cp.A.device)
+    A = torch.einsum("ij,bjk->bik", R, cp.A)
+    b = cp.b @ R.T
+    return (cp.c, b[:, :p], b[:, p:], A[:, :p], A[:, p:]), (p, l, socs, psds)
+
+
+def mixed_batch(B, dtype, gen):
+    """zero(2) + nonneg(3) + nonpos(2) + soc(4) + rsoc(3) + psd(side 3), n = 5: strictly feasible (b from
+    an interior slack) and bounded (c from an interior dual)."""
+    from diffopt_tpu_torch import ConeProgram, ConeSpec
+
+    n = 5
+    blocks = [("zero", 2), ("nonneg", 3), ("nonpos", 2), ("soc", 4), ("rsoc", 3), ("psd", 6)]
+    rnd = lambda *shape: torch.randn(*shape, dtype=dtype, device=DEVICE, generator=gen)
+
+    def interior():
+        parts = []
+        for kind, d in blocks:
+            if kind == "nonneg":
+                parts.append(rnd(B, d).abs() + 0.5)
+            elif kind == "nonpos":
+                parts.append(-rnd(B, d).abs() - 0.5)
+            elif kind == "soc":
+                t = rnd(B, d)
+                parts.append(torch.cat([t[:, 1:].norm(dim=1, keepdim=True) + 1.0, t[:, 1:]], 1))
+            elif kind == "rsoc":  # 2 t u >= ||x||^2
+                t = rnd(B, d)
+                parts.append(torch.cat([1.0 + (t[:, 2:] ** 2).sum(1, keepdim=True), torch.ones_like(t[:, :1]), t[:, 2:]], 1))
+            elif kind == "psd":
+                M = rnd(B, 3, 3)
+                S = M @ M.transpose(1, 2) + 3 * torch.eye(3, dtype=dtype, device=DEVICE)
+                parts.append(torch.stack([S[:, r, c] * (1.0 if r == c else 2**0.5) for c in range(3) for r in range(c + 1)], 1))
+            else:
+                parts.append(None)
+        return parts
+
+    m = sum(d for _, d in blocks)
+    A = rnd(B, m, n)
+    s0 = torch.cat([torch.zeros(B, d, dtype=dtype, device=DEVICE) if x is None else x
+                    for x, (_, d) in zip(interior(), blocks)], 1)
+    y0 = torch.cat([rnd(B, d) if x is None else x for x, (_, d) in zip(interior(), blocks)], 1)
+    b = torch.einsum("bij,bj->bi", A, rnd(B, n)) + s0
+    return ConeProgram(A, b, -torch.einsum("bij,bi->bj", A, y0), ConeSpec(blocks))
+
+
+def k6_compare(cp, tol, max_iters=50):
+    """K6 and its plain version on one batch; returns the kernel's and the plain run's outputs, the
+    per-instance relative differences and the plain version's wall time."""
+    from diffopt_tpu_torch.ops.cuda import conic_pdip
+
+    args, lay = internal_batch(cp)
+    f64 = cp.A.dtype == torch.float64
+    kw = dict(max_iters=max_iters, tol=tol, reg=1e-11 if f64 else 1e-7, eps=1e-14 if f64 else 1e-7)
+    out = conic_pdip.solve_tile_fused(*args, lay, **kw)
+    ref, plain_ms = wall_ms(lambda: conic_pdip.solve_tile_fused_plain(*args, lay, **kw))
+    inst = torch.stack([(a - b).abs().amax(-1) / (1.0 + b.abs().amax(-1))
+                        for a, b in ((out[0], ref[0]), (out[2], ref[2]), (out[3], ref[3]))]).amax(0)
+    return out, ref, inst.double(), plain_ms, (args, lay, kw)
+
+
+def phase_kernels_conic(batch, gen):
+    """K6 against its plain version: the SOCP of the [conic] path in f32 at the full batch and in f64,
+    the SDP side 4 in f32 and f64, a layout with every symmetric kind in f64, and a batch past the
+    reference's envelope (psd side 8) in f64. Returns the entry of the ``kernels`` line."""
+    from diffopt_tpu_torch.ops.cuda import conic_pdip
+    from diffopt_tpu_torch.utils.testing import make_sdp_batch, make_socp_batch
+
+    entry = None
+    cases = [
+        ("SOCP f32", make_socp_batch(batch, n=CONIC_N, seed=1, device=DEVICE), 5e-6),
+        ("SOCP f64", make_socp_batch(min(batch, 4096), n=CONIC_N, seed=2, dtype=torch.float64, device=DEVICE), 1e-9),
+        ("SDP side 4 f32", make_sdp_batch(min(batch, 4096), 4, seed=3, device=DEVICE), 5e-6),
+        ("SDP side 4 f64", make_sdp_batch(min(batch, 1024), 4, seed=4, dtype=torch.float64, device=DEVICE), 1e-9),
+        ("mixed f64", mixed_batch(min(batch, 512), torch.float64, gen), 1e-9),
+        ("SDP side 8 f64", make_sdp_batch(min(batch, 256), 8, seed=5, dtype=torch.float64, device=DEVICE), 1e-9),
+    ]
+    for label, cp, tol in cases:
+        cp = cp.map(lambda t: t.to(DEVICE))
+        out, ref, inst, plain_ms, (args, lay, kw) = k6_compare(cp, tol)
+        B = cp.batch_size
+        f64 = cp.A.dtype == torch.float64
+        conv_k = torch.maximum(out[5], out[6]) < 10 * tol
+        conv_p = torch.maximum(ref[5], ref[6]) < 10 * tol
+        both = conv_k & conv_p
+        moved = float((out[4] != ref[4])[both].float().mean()) if bool(both.any()) else 0.0
+        med, q99, worst = (float(torch.quantile(inst, q)) for q in (0.5, 0.99, 1.0))
+        max_abs = max(float((a - b).abs().max()) for a, b in zip(out[:4], ref[:4]) if a.numel())
+        print(f"[kernels] conic_pdip {label} B={B} layout {lay} tol {tol:.0e}: per-instance relative diff median"
+              f" {med:.3e}, 99% {q99:.3e}, max {worst:.3e}; converged {float(conv_k.float().mean()):.4%} (plain"
+              f" {float(conv_p.float().mean()):.4%}); iterations mean {float(out[4].float().mean()):.2f} vs plain"
+              f" {float(ref[4].float().mean()):.2f}, differ on {moved:.3%} of the instances both converged; plain {plain_ms:.0f} ms")
+        check(all(bool(torch.isfinite(t).all()) for t in out[:4]), f"conic_pdip {label}: non-finite output")
+        if f64 and not lay[3]:
+            check(worst <= TOL_K6_F64, f"conic_pdip {label} disagrees with its plain version: max {worst:.3e}")
+            check(moved == 0.0, f"conic_pdip {label}: iteration counts differ on {moved:.3%}")
+        elif f64:
+            tolp = TOL_K6_F64_PSD
+            print(f"[kernels] conic_pdip {label}: instances above 1e-9: {int((inst > 1e-9).sum())} of {B}")
+            check(med <= tolp["median"] and q99 <= tolp["q99"] and worst <= tolp["max"],
+                  f"conic_pdip {label} disagrees with its plain version: median {med:.3e}, 99% {q99:.3e}, max {worst:.3e}")
+            check(moved <= tolp["iterations_differ"], f"conic_pdip {label}: iteration counts differ on {moved:.3%}")
+        else:
+            tolf = TOL_K6_F32
+            check(med <= tolf["median"] and q99 <= tolf["q99"] and worst <= tolf["max"],
+                  f"conic_pdip {label} disagrees with its plain version: median {med:.3e}, 99% {q99:.3e}, max {worst:.3e}")
+            check(abs(float(conv_k.float().mean()) - float(conv_p.float().mean())) <= 0.01,
+                  f"conic_pdip {label}: converged shares differ")
+        if label in ("SOCP f32", "SDP side 4 f32"):
+            item = 4
+            n, (p, l, socs, psds) = cp.num_vars, lay
+            mC = args[2].shape[1]
+            ms = time_ms(lambda: conic_pdip.solve_tile_fused(*args, lay, **kw), reps=3)
+            bytes_moved = B * item * ((p + mC) * (n + 1) + n + (n + p + 2 * mC + 2) + 1)
+            flops = float((out[4].double() + 1).sum()) * conic_pdip_flops_per_iteration(n, p, l, socs, psds)
+            b_ms, b_by = bound(bytes_moved, flops)
+            print(f"[kernels] conic_pdip {label} B={B}: {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}, plain {plain_ms:.0f} ms)")
+            if label == "SOCP f32":
+                entry = dict(
+                    name="conic_pdip", route="cuda", source="diffopt_tpu_torch/csrc/conic_pdip.cu",
+                    replaces="diffopt_tpu/ops/pallas/conic_pdip.py:396", max_abs_err=max_abs, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                )
+            else:
+                entry["sdp4_ms"], entry["sdp4_bound_ms"], entry["sdp4_plain_ms"] = ms, b_ms, plain_ms
+        del out, ref, cp
+        torch.cuda.empty_cache()
+    return {"conic_pdip": entry}
+
+
+def conic_step_runner(cp, **kw):
+    """One solve_conic_batched forward + backward of sum(x^2) (the conic benchmark's step)."""
+    import diffopt_tpu_torch as dtt
+
+    def step():
+        for t in cp.tensors():
+            t.grad = None
+        sol, info = dtt.solve_conic_batched(cp, with_info=True, **kw)
+        loss = (sol.x**2).sum()
+        loss.backward()
+        return sol, info, loss
+
+    return step
+
+
+def timed_steps(step, steps):
+    step()  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, sorted(times)[len(times) // 2]
+
+
+def phase_conic(batch):
+    """The slice's main path at full width: solve_conic_batched (K6 forward, gram polish, gram VJP on
+    K4 / K5) forward + backward on the SOCP of BASELINE config 3, a warm-up and three timed steps;
+    launch counts, converged share, residuals, and the f32 gradients of 512 instances against the same
+    instances solved and differentiated in f64."""
+    import diffopt_tpu_torch as dtt
+    from diffopt_tpu_torch.utils.testing import make_socp_batch
+
+    cp = make_socp_batch(batch, n=CONIC_N, seed=0, device=DEVICE).map(lambda t: t.requires_grad_())
+    kw = dict(max_iters=50, tol=1e-5, method="gram")
+    wrappers = reset_counts()
+    (sol, info, loss), med = timed_steps(conic_step_runner(cp, **kw), STEPS)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    per_step = {k: v / (STEPS + 1) for k, v in launches.items()}
+    print(f"[conic] launches over {STEPS + 1} steps: {launches} (per step {per_step})")
+    check(per_step["conic_pdip"] == 1, f"[conic]: K6 launched {per_step['conic_pdip']} times per step, expected 1")
+    check(per_step["chol_factor"] > 0 and per_step["chol_solve"] > 0, "[conic]: the gram route launched no K4 / K5")
+    check(per_step["pdip_fused"] == 0 and per_step["ldl_factor"] == 0, "[conic]: a QP kernel was launched")
+    grads = [t.grad for t in cp.tensors()]
+    check(all(bool(torch.isfinite(t).all()) for t in sol.tensors()), "[conic]: non-finite solution")
+    check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads), "[conic]: non-finite gradient")
+    check(sol.x.shape == (batch, CONIC_N) and sol.y.shape == (batch, CONIC_N + 1), "[conic]: wrong shapes")
+    conv = float(info.converged.float().mean())
+    res = float(torch.maximum(info.primal_residual, info.dual_residual).max())
+    its = info.iterations.float()
+    print(f"[conic] B={batch} n={CONIC_N} SOC({CONIC_N + 1}) f32: loss {loss.item():.6e}, converged {conv:.4%}, max"
+          f" relative KKT residual {res:.3e}, iterations mean {float(its.mean()):.2f} max {int(its.max())}")
+    check(conv >= 0.99, f"[conic]: only {conv:.3%} of the instances converged")
+    check(res <= 1e-3, f"[conic]: relative KKT residual {res:.3e}: an instance is far from solved")
+    # the f32 gradients of a subset against the same instances in f64 (K6, polish and VJP in f64)
+    sub = min(batch, 512)
+    c64 = cp.map(lambda t: t.detach()[:sub].double().requires_grad_())
+    s64 = dtt.solve_conic_batched(c64, method="gram")  # the f64 default tolerance, 1e-9
+    (s64.x**2).sum().backward()
+    for name, g, r in zip("Abc", grads, c64.tensors()):
+        diff = (g[:sub].double() - r.grad).abs().flatten(1).amax(1) / float(r.grad.abs().max())
+        share = float((diff > 1e-2).float().mean())
+        print(f"[conic] grad d{name} f32 against f64: per-instance relative diff median {float(diff.median()):.3e},"
+              f" 99% {float(torch.quantile(diff, 0.99)):.3e}, max {float(diff.max()):.3e}, above 1e-2 on {share:.3%}")
+        check(float(diff.median()) <= TOL_CONIC_GRAD["median"] and share <= TOL_CONIC_GRAD["share_above_1e-2"],
+              f"[conic]: f32 gradient d{name} off the f64 one")
+    rate = batch / med
+    return launches, dict(solves_vjps_per_s=rate, step_ms=med * 1e3, batch=batch, converged=conv,
+                          max_kkt_residual=res, mean_iterations=float(its.mean()),
+                          conic_pdip_per_step=per_step["conic_pdip"], chol_factor_per_step=per_step["chol_factor"],
+                          chol_solve_per_step=per_step["chol_solve"])
+
+
+def phase_sdp(batch):
+    """solve_conic_batched with its defaults on the SDP family, psd sides 4, 8 and 16, B = 4096, n = 3, f32:
+    rate, route and converged share."""
+    from diffopt_tpu_torch.ops.cuda import conic_pdip
+    from diffopt_tpu_torch.utils.testing import make_sdp_batch
+
+    out = []
+    B = min(batch, 4096)
+    for side in SDP_SIDES:
+        cp = make_sdp_batch(B, side, n=3, seed=side, device=DEVICE).map(lambda t: t.requires_grad_())
+        tri = side * (side + 1) // 2
+        route = "K6" if conic_pdip.in_envelope(3, 0, 0, (4,), (side,), 4) else "staged"
+        wrappers = reset_counts()
+        (sol, info, _), med = timed_steps(conic_step_runner(cp), STEPS if side < 16 else 1)
+        k6 = wrappers["conic_pdip"].launches
+        check((k6 > 0) == (route == "K6"), f"[sdp] side {side}: K6 launches {k6} on the {route} route")
+        finite = torch.stack([torch.isfinite(t.grad).flatten(1).all(1) for t in cp.tensors()]).all(0)
+        conv = float(info.converged.float().mean())
+        line = dict(side=side, batch=B, n=3, rows=tri + 4, route=route, solves_vjps_per_s=B / med, step_ms=med * 1e3,
+                    converged=conv, mean_iterations=float(info.iterations.float().mean()),
+                    finite_gradients=float(finite.float().mean()))
+        print(f"[sdp] side {side} (N = {3 + tri + 4}) B={B} f32: {B / med:.1f} solves+VJPs per second (step"
+              f" {med * 1e3:.2f} ms), route {route}, converged {conv:.4%}, iterations mean {line['mean_iterations']:.2f},"
+              f" finite gradients on {line['finite_gradients']:.4%}")
+        check(bool(finite[info.converged].all()), f"[sdp] side {side}: a converged instance has a non-finite gradient")
+        out.append(line)
+        del cp, sol, info
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_conic_routes(gen):
+    """The other entry points and routes of the slice at small batches, f64: solve_conic (staged IPM)
+    against K6's solution, the forward rule against a central difference, ConicDiffContext against the
+    uncached verbs, 'lsqr' against 'lstsq' past the LSQR threshold (which also takes the staged solver's
+    condensed route, N > 128), ParametricProgram(kind='conic'), and an exp-cone program."""
+    import torch.autograd.forward_ad as fwAD
+
+    import diffopt_tpu_torch as dtt
+    from diffopt_tpu_torch import conic_diff
+    from diffopt_tpu_torch.solvers import conic_ipm
+    from diffopt_tpu_torch.utils.testing import make_socp_batch
+
+    cp = make_socp_batch(512, n=CONIC_N, seed=6, dtype=torch.float64, device=DEVICE)
+    wrappers = reset_counts()
+    staged = dtt.solve_conic(cp, solver="ipm", polish=0)
+    fused = dtt.solve_conic_batched(cp, polish=0)
+    err = float(((staged.x - fused.x).abs().amax(1) / (1.0 + fused.x.abs().amax(1))).max())
+    print(f"[conic-routes] solve_conic(solver='ipm') against K6, SOCP f64 B=512: max per-instance relative diff of x"
+          f" {err:.3e} (tol 1e-6); launches {dict((k, w.launches) for k, w in wrappers.items())},"
+          f" {conic_ipm.solve_batched.host_syncs} host syncs in the staged loop")
+    check(err <= 1e-6, "solve_conic (staged) and K6 disagree")
+    check(wrappers["ldl_factor"].launches > 0 and wrappers["conic_pdip"].launches == 1, "[conic-routes]: wrong kernels")
+
+    # the forward rule against a central difference of the solution map (staged solver, f64, solved tightly)
+    sub = cp.map(lambda t: t[:64])
+    dA, db, dc = (0.1 * torch.randn(t.shape, dtype=t.dtype, device=DEVICE, generator=gen) for t in sub.tensors())
+    with fwAD.dual_level():
+        dual = dtt.ConeProgram(fwAD.make_dual(sub.A, dA), fwAD.make_dual(sub.b, db), fwAD.make_dual(sub.c, dc), sub.cones)
+        jx = fwAD.unpack_dual(dtt.solve_conic(dual, mode="jvp", tol=1e-12).x).tangent
+    eps = 1e-6
+    shift = lambda sgn: dtt.ConeProgram(sub.A + sgn * eps * dA, sub.b + sgn * eps * db, sub.c + sgn * eps * dc, sub.cones)
+    fd = (dtt.solve_conic(shift(1), tol=1e-12).x - dtt.solve_conic(shift(-1), tol=1e-12).x) / (2 * eps)
+    jerr = (jx - fd).abs().amax(1) / (1.0 + fd.abs().amax(1))
+    print(f"[conic-routes] solve_conic(mode='jvp') against a central difference (eps {eps:.0e}), f64 B=64: per-instance"
+          f" relative diff median {float(jerr.median()):.3e}, max {float(jerr.max()):.3e} (tol: median 1e-6, max 1e-4;"
+          " the difference quotient carries the solver's tolerance over eps)")
+    check(float(jerr.median()) <= 1e-6 and float(jerr.max()) <= 1e-4,
+          "the conic forward rule disagrees with a central difference")
+
+    # ConicDiffContext against the uncached verbs
+    ctx = dtt.ConicDiffContext(sub)
+    seeds = [torch.randn(t.shape, dtype=t.dtype, device=DEVICE, generator=gen) for t in ctx.sol.tensors()]
+    cr = ctx.reverse(*seeds)
+    ur = conic_diff.reverse_differentiate(sub, ctx.sol, *seeds, method="lstsq", refine_iters=2)
+    cf = ctx.forward(dtt.ConeTangent(dA, db, dc))
+    uf = conic_diff.forward_differentiate(sub, ctx.sol, dtt.ConeTangent(dA, db, dc), method="lstsq", refine_iters=2)
+    cerr = max(rel_err(a, b) for a, b in list(zip(cr.tensors(), ur.tensors())) + list(zip(cf, uf)))
+    print(f"[conic-routes] ConicDiffContext.forward / reverse against the uncached verbs, f64 B=64: relative diff"
+          f" {cerr:.3e} (tol 1e-8)")
+    check(cerr <= 1e-8, "ConicDiffContext disagrees with the uncached verbs")
+
+    # past the LSQR threshold (dim M = n + m + 1 > 500): 'auto' takes LSQR; the solve takes the condensed route.
+    # M is singular at a solution and LSQR has no reorthogonalisation: on some instances its iterate drifts into
+    # the null space (norm ~1e6, ~150 iterations), in the JAX package as here (ROADMAP.md, section 3); it is held
+    # against the dense least-squares route on the median instance and on at least half of them
+    Bl = 16
+    big = make_socp_batch(Bl, n=250, seed=7, dtype=torch.float64, device=DEVICE)
+    check(big.num_vars + big.num_rows > 128 and conic_diff.resolve_method(big, "auto") == "lsqr", "not past the thresholds")
+    reset_counts()
+    bsol, binfo = conic_ipm.solve_batched(big)
+    check(bool(binfo.converged.all()), "condensed staged route: not converged")
+    check(wrappers["ldl_factor"].launches == 0, "the condensed route launched the LDL' kernel")
+    bseed = torch.randn(Bl, 250, dtype=torch.float64, device=DEVICE, generator=gen)
+    g_lsqr = conic_diff.reverse_differentiate(big, bsol, bseed, method="auto")
+    g_dense = conic_diff.reverse_differentiate(big, bsol, bseed, method="lstsq")
+    ldiff = torch.stack([(a - b).abs().flatten(1).amax(1) / b.abs().flatten(1).amax(1)
+                         for a, b in zip(g_lsqr.tensors(), g_dense.tensors())]).amax(0)
+    agree = float((ldiff <= 1e-6).float().mean())
+    print(f"[conic-routes] SOCP n=250 SOC(251) f64 B={Bl} (N = {big.num_vars + big.num_rows}): staged condensed route"
+          f" converged in {float(binfo.iterations.float().mean()):.1f} iterations; reverse through 'auto' (LSQR) against"
+          f" 'lstsq': per-instance relative diff median {float(ldiff.median()):.3e}, within 1e-6 on {agree:.2%}"
+          f" (the rest drifted into the null space of M: max {float(ldiff.max()):.3e})")
+    check(float(ldiff.median()) <= 1e-6 and agree >= 0.5, "LSQR and the dense least-squares route disagree")
+
+    # ParametricProgram(kind='conic'): theta scales b; d loss / d theta = <grad_b, b> by the chain rule
+    layer = dtt.ParametricProgram(lambda th: dtt.ConeProgram(sub.A, th * sub.b, sub.c, sub.cones), kind="conic")
+    one = torch.tensor(1.0, dtype=torch.float64, device=DEVICE)
+    dth = layer.reverse_differentiate(one, dx=seeds[0])
+    b = sub.b.clone().requires_grad_()
+    (dtt.solve_conic(dtt.ConeProgram(sub.A, b, sub.c, sub.cones)).x * seeds[0]).sum().backward()
+    perr = abs(float(dth) - float((b.grad * sub.b).sum())) / (1.0 + abs(float(dth)))
+    print(f"[conic-routes] ParametricProgram(kind='conic') on the card: d/dtheta {float(dth):.6e}, chain-rule diff {perr:.3e}")
+    check(perr <= 1e-8, "ParametricProgram(kind='conic') disagrees with the chain rule")
+
+    # an exp-cone program names the slice that brings it
+    z = torch.zeros(1, 3, 1, dtype=torch.float64, device=DEVICE)
+    try:
+        dtt.solve_conic_batched(dtt.ConeProgram(z, z[..., 0], z[:, 0], dtt.ConeSpec([("exp", 3)])))
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    print(f"[conic-routes] an exp-cone program raises NotImplementedError: {raised[:100]}...")
+    check("K7" in raised, "an exp-cone program did not raise NotImplementedError naming its slice")
 
 
 def main(argv=None):
@@ -901,15 +1319,22 @@ def main(argv=None):
     phase_build()
     entries = phase_kernels(args.batch, gen)
     entries.update(phase_kernels_chol(args.batch, gen))
+    entries.update(phase_kernels_conic(args.batch, gen))
+    gram34 = entries.pop("gram34")
     phase_k1_mu_zero(gen)
     launches, rate, step_s = phase_main(args.batch, gen)
     staged_launches, staged = phase_staged(args.batch, gen)
-    # each kernel's count is read from the run of its own path: K1-K3 the main path's, K4 / K5 the staged one's
-    for name, e in entries.items():
-        e["launches"] = (staged_launches if name.startswith("chol_") else launches)[name]
-        check(e["launches"] > 0, f"{name} was not launched on its path")
     phase_routes(args.batch, gen)
     qp100 = phase_qp100(args.batch, gen)
+    conic_launches, conic = phase_conic(args.batch)
+    sdp = phase_sdp(args.batch)
+    phase_conic_routes(gen)
+    # each kernel's count is read from the run of its own path: K1-K3 the QP main path's, K4 / K5 the staged
+    # QP path's, K6 the conic path's
+    for name, e in entries.items():
+        e["launches"] = (conic_launches if name == "conic_pdip" else staged_launches if name.startswith("chol_")
+                         else launches)[name]
+        check(e["launches"] > 0, f"{name} was not launched on its path")
     print(
         f"[main] {rate:.1f} QP solves+VJPs per second (median step {step_s * 1e3:.2f} ms, B = {args.batch}) on {card}"
     )
@@ -922,7 +1347,11 @@ def main(argv=None):
             "bound_by", "library_ms")
     print(json.dumps({"main": {"solves_vjps_per_s": rate, "step_ms": step_s * 1e3, "batch": args.batch, "card": card}}))
     print(json.dumps({"staged": {**staged, "card": card}}))
+    print(f"[conic] {conic['solves_vjps_per_s']:.1f} SOCP solves+VJPs per second (median step {conic['step_ms']:.2f} ms,"
+          f" B = {args.batch}) on {card}")
     print(json.dumps({"qp100": {**qp100, "card": card}}))
+    print(json.dumps({"conic": {**conic, "gram_route_kernels": gram34, "card": card}}))
+    print(json.dumps({"sdp": sdp, "card": card}))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,17 +12,24 @@ batched main path ``solve_qp_batched`` (fused PDIP forward, active-set polish,
 KKT metrics, LDL' adjoint VJP); the staged path ``solve_qp`` (Mehrotra solver
 on the batched Cholesky kernels, reverse and forward rules, the
 ``auto``/``lstsq``/``qr`` KKT routes for LPs); the differentiation verbs, the
-``QPDiffContext`` session, ``ParametricProgram(kind="qp")`` and QP padding.
+``QPDiffContext`` session, ``ParametricProgram(kind="qp")`` and QP padding;
+and the symmetric-cone path — ``solve_conic_batched`` (the fused NT-scaled
+IPM kernel, ``gram`` polish and VJP), ``solve_conic`` (staged conic IPM,
+reverse and forward rules), the cones and their projections, ``conic_diff``,
+``ConicDiffContext``, ``ParametricProgram(kind="conic")`` and conic padding.
+The exp/pow cones, the DR splitting and the NLP path come with later slices.
 """
 
-from .ir import QPSolution, QPTangent, QuadProgram
+from .ir import ConeProgram, ConeSolution, ConeTangent, QPSolution, QPTangent, QuadProgram
+from .cones import ConeSpec
 from .qp_diff import forward_differentiate, reverse_differentiate
-from .solve import solve_qp, solve_qp_batched
+from .solve import solve_conic, solve_conic_batched, solve_qp, solve_qp_batched
+from .solvers.conic import ConicSolveInfo
 from .solvers.qp import QPSolveInfo, kkt_metrics
-from .api import NotSolvedError, QPDiffContext
+from .api import ConicDiffContext, NotSolvedError, QPDiffContext
 from .parameters import ParametricProgram
 from .utils.config import DiffOptConfig, get_config, set_config, use_config
-from . import convert, parameters, qp_diff, utils
+from . import conic_diff, convert, parameters, qp_diff, utils
 
 __version__ = "0.1.0"
 
@@ -31,6 +38,15 @@ __all__ = [
     "QPSolution",
     "QPTangent",
     "QPSolveInfo",
+    "ConeProgram",
+    "ConeSolution",
+    "ConeTangent",
+    "ConeSpec",
+    "ConicSolveInfo",
+    "conic_diff",
+    "solve_conic",
+    "solve_conic_batched",
+    "ConicDiffContext",
     "forward_differentiate",
     "reverse_differentiate",
     "solve_qp",

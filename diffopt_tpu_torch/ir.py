@@ -10,6 +10,13 @@ arXiv:1703.00443)::
 The port is batch-first: every field carries a leading batch dimension,
 ``Q (B, n, n)``, ``q (B, n)``, ``A (B, p, n)``, ``b (B, p)``, ``G (B, m, n)``,
 ``h (B, m)``.
+
+Conic programs (SCS geometric form)::
+
+    min c'x   s.t.  Ax + s = b,  s in K
+
+with ``A (B, m, n)``, ``b (B, m)``, ``c (B, n)`` and ``cones`` a static
+:class:`~diffopt_tpu_torch.cones.ConeSpec` describing the row layout of K.
 """
 
 from __future__ import annotations
@@ -136,3 +143,57 @@ class QPTangent(_TensorStruct):
     @staticmethod
     def zeros_like(qp: QuadProgram) -> "QPTangent":
         return QPTangent(*(torch.zeros_like(getattr(qp, k)) for k in ("Q", "q", "A", "b", "G", "h")))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConeProgram(_TensorStruct):
+    """Conic program ``min c'x  s.t.  Ax + s = b, s in K``: ``A (B, m, n)``,
+    ``b (B, m)``, ``c (B, n)`` (one instance drops the batch dimension);
+    ``cones`` is static metadata, carried along by :meth:`map` and
+    :meth:`to`, never a tensor."""
+
+    A: Tensor
+    b: Tensor
+    c: Tensor
+    cones: "ConeSpec"
+
+    def tensors(self):
+        return (self.A, self.b, self.c)
+
+    def map(self, fn):
+        return ConeProgram(fn(self.A), fn(self.b), fn(self.c), self.cones)
+
+    @property
+    def num_vars(self) -> int:
+        return self.c.shape[-1]
+
+    @property
+    def num_rows(self) -> int:
+        return self.b.shape[-1]
+
+    @property
+    def batch_size(self) -> int:
+        return self.c.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ConeSolution(_TensorStruct):
+    """Primal-dual-slack solution: ``x (B, n)``, ``y (B, m)`` dual in K*,
+    ``s (B, m)`` slack in K."""
+
+    x: Tensor
+    y: Tensor
+    s: Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ConeTangent(_TensorStruct):
+    """Perturbations (or cotangents) ``(dA, db, dc)`` of ConeProgram data."""
+
+    dA: Tensor
+    db: Tensor
+    dc: Tensor
+
+    @staticmethod
+    def zeros_like(cp: ConeProgram) -> "ConeTangent":
+        return ConeTangent(*(torch.zeros_like(t) for t in cp.tensors()))

@@ -13,8 +13,9 @@ mode) — every op in ``build`` must support the mode that is used.
     dtheta = layer.reverse_differentiate(theta, dz=...)
 
 ``theta`` is a tensor or any nesting of dicts, lists and tuples of tensors.
-``kind="conic"`` and ``kind="nlp"`` come with the cone and NLP slices of the
-port.
+``kind="conic"`` takes ``build(theta) -> ConeProgram`` and solves through
+:func:`~diffopt_tpu_torch.solve_conic` (seeds ``dx=``, ``dy=``, ``ds=``);
+``kind="nlp"`` comes with the NLP slice of the port.
 """
 
 from __future__ import annotations
@@ -25,40 +26,40 @@ import torch
 import torch.autograd.forward_ad as fwAD
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
-from .ir import QPSolution
-from .solve import solve_qp
+from .solve import solve_conic, solve_qp
 
-_WAITING = {
-    "conic": "kind='conic' waits for the cone slice of the port (cones.py, conic_diff.py, solve_conic)",
-    "nlp": "kind='nlp' waits for the NLP slice of the port (nlp_diff.py, solvers/nlp.py, solve_nlp)",
-}
+_NLP_WAITING = "kind='nlp' waits for the NLP slice of the port (nlp_diff.py, solvers/nlp.py, solve_nlp)"
+_SEEDS = {"qp": ("dz", "dlam", "dnu"), "conic": ("dx", "dy", "ds")}
 
 
 class ParametricProgram:
     """A program whose data is an arbitrary differentiable function of
     parameters. ``build(theta)`` must return a
-    :class:`~diffopt_tpu_torch.ir.QuadProgram` (``kind='qp'``), one instance
-    or a batch; ``solve_options`` go to :func:`~diffopt_tpu_torch.solve_qp`.
+    :class:`~diffopt_tpu_torch.ir.QuadProgram` (``kind='qp'``) or a
+    :class:`~diffopt_tpu_torch.ir.ConeProgram` (``kind='conic'``), one
+    instance or a batch; ``solve_options`` go to
+    :func:`~diffopt_tpu_torch.solve_qp` / :func:`~diffopt_tpu_torch.solve_conic`.
     """
 
     def __init__(self, build: Callable, kind: str = "qp", **solve_options):
         if kind not in ("qp", "conic", "nlp"):
             raise ValueError("kind must be 'qp', 'conic' or 'nlp'")
-        if kind != "qp":
-            raise NotImplementedError(_WAITING[kind])
+        if kind == "nlp":
+            raise NotImplementedError(_NLP_WAITING)
         self.build = build
         self.kind = kind
         self.solve_options = dict(solve_options)
 
     def _solve(self, theta, mode: str):
-        return solve_qp(self.build(theta), mode=mode, **self.solve_options)
+        solve = solve_qp if self.kind == "qp" else solve_conic
+        return solve(self.build(theta), mode=mode, **self.solve_options)
 
     def solve(self, theta):
         """Differentiable solve (reverse-mode ready: call ``backward`` on a
         function of the result)."""
         return self._solve(theta, "vjp")
 
-    def forward_differentiate(self, theta, dtheta) -> QPSolution:
+    def forward_differentiate(self, theta, dtheta):
         """JVP: tangent of the full primal-dual solution along ``dtheta``
         (same structure as ``theta``)."""
         with fwAD.dual_level():
@@ -73,12 +74,13 @@ class ParametricProgram:
 
     def reverse_differentiate(self, theta, **seeds):
         """VJP: parameter cotangents (same structure as ``theta``) for
-        solution seeds ``dz=...`` and optionally ``dlam=`` / ``dnu=``."""
+        solution seeds ``dz=...`` and optionally ``dlam=`` / ``dnu=`` (QP), or
+        ``dx=`` / ``dy=`` / ``ds=`` (conic)."""
         leaves, spec = tree_flatten(theta)
         leaves = [t.detach().requires_grad_() for t in leaves]
         sol = self._solve(tree_unflatten(leaves, spec), "vjp")
         outs, cots = [], []
-        for out, name in zip(sol.tensors(), ("dz", "dlam", "dnu")):
+        for out, name in zip(sol.tensors(), _SEEDS[self.kind]):
             if name in seeds and out.requires_grad:
                 outs.append(out)
                 cots.append(seeds[name])

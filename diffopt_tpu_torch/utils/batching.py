@@ -13,7 +13,16 @@ mathematically identical to the original:
 ``bucket_by_shape`` groups instances into few shape buckets to bound padding
 waste. Outputs live on the inputs' device; padding is differentiable, so
 gradients of a padded batch flow back to the original instances' tensors.
-The conic padding comes with the cone slice of the port.
+
+Conic programs (same n, a shared ordered kind sequence) are padded row-wise
+to the elementwise-max cone spec with strictly inactive rows whose dual is 0:
+
+* nonneg / nonpos blocks: rows ``0'x + s = +1`` / ``-1`` (s strictly inside);
+* soc / rsoc blocks grown in place: tail rows ``s_i = 0``; whole appended
+  blocks: ``s = (1, 0, ..., 0)`` (``(1, 1, 0, ...)`` for rsoc);
+* whole appended psd blocks: ``s = svec(I)``.
+
+Zero-cone rows are not padded (a 0 = 0 row has an indeterminate dual).
 """
 
 from __future__ import annotations
@@ -23,7 +32,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ir import QPSolution, QPTangent, QuadProgram
+from ..cones import ConeSpec, _tri_side, sym_to_svec
+from ..ir import ConeProgram, ConeSolution, ConeTangent, QPSolution, QPTangent, QuadProgram
 
 
 def _embed(block: torch.Tensor, shape, fill: float = 0.0) -> torch.Tensor:
@@ -137,3 +147,125 @@ def bucket_by_shape(
     for i, d in enumerate(dims):
         buckets[assign[d]].append(i)
     return buckets
+
+
+# ---------------------------------------------------------------------------
+# Conic programs
+# ---------------------------------------------------------------------------
+
+
+def cone_pad_spec(specs: Sequence[ConeSpec]) -> ConeSpec:
+    """Elementwise-max target spec for specs sharing the same ordered kind
+    sequence (extra trailing blocks in some instances are allowed; missing
+    blocks are padded in as interior blocks)."""
+    max_len = max(len(sp.blocks) for sp in specs)
+    blocks = []
+    for i in range(max_len):
+        present = [sp.blocks[i] for sp in specs if len(sp.blocks) > i]
+        kinds = {b[0] for b in present}
+        if len(kinds) != 1:
+            raise ValueError(
+                f"cone block {i}: mismatched kinds {sorted(kinds)}; heterogeneous batching needs a shared kind sequence"
+            )
+        (kind,) = kinds
+        prms = {b[2] for b in present}
+        if len(prms) != 1:
+            raise ValueError(f"cone block {i}: mismatched {kind} parameters {sorted(prms)}")
+        prm = prms.pop()
+        if kind == "zero":
+            dims = {b[1] for b in present}
+            if len(dims) != 1 or len(present) != len(specs):
+                raise ValueError("zero-cone blocks cannot be padded (indeterminate duals)")
+            blocks.append((kind, dims.pop()))
+        else:
+            d = max(b[1] for b in present)
+            blocks.append((kind, d) if prm is None else (kind, d, prm))
+    return ConeSpec(blocks)
+
+
+def pad_cone_program(cp: ConeProgram, target: ConeSpec) -> ConeProgram:
+    """Pad one (unbatched) instance's rows to ``target`` (same n) preserving
+    its solution: x identical, original (y, s) on the original rows, padded
+    rows strictly inactive with zero dual."""
+    if cp.cones == target:
+        return cp
+    n = cp.num_vars
+    src = list(cp.cones.offsets())
+    A_rows, b_rows = [], []
+    for i, (kind, _, t_dim) in enumerate(target.offsets()):
+        if i < len(src):
+            s_kind, s_off, s_dim = src[i]
+            if s_kind != kind or s_dim > t_dim:
+                raise ValueError(f"block {i}: cannot pad {s_kind}({s_dim}) to {kind}({t_dim})")
+            A_rows.append(cp.A[s_off:s_off + s_dim])
+            b_rows.append(cp.b[s_off:s_off + s_dim])
+        else:
+            s_dim = 0
+        extra = t_dim - s_dim
+        if extra == 0:
+            continue
+        A_rows.append(cp.A.new_zeros(extra, n))
+        pad = cp.b.new_zeros(extra)
+        if kind == "nonneg":
+            pad += 1.0  # s = 1 > 0
+        elif kind == "nonpos":
+            pad -= 1.0  # s = -1 < 0
+        elif kind in ("soc", "rsoc"):
+            if s_dim == 0:  # a whole appended block: strictly interior head
+                pad[0] = 1.0
+                if kind == "rsoc" and extra > 1:
+                    pad[1] = 1.0  # (1, 1, 0..): 2tu = 2 > 0
+        elif kind == "psd":
+            if s_dim > 0:
+                raise ValueError("psd blocks cannot be grown in place (svec interleaving); only whole appended psd blocks are supported")
+            pad = sym_to_svec(torch.eye(_tri_side(extra), dtype=cp.b.dtype, device=cp.b.device))
+        else:
+            raise NotImplementedError(
+                f"cannot pad cone kind {kind!r}: the exp/pow cones come with the slice of the port that brings kernel K7"
+            )
+        b_rows.append(pad)
+    return ConeProgram(A=torch.cat(A_rows, dim=0), b=torch.cat(b_rows, dim=0), c=cp.c, cones=target)
+
+
+def pad_and_stack_cones(cps: Sequence[ConeProgram]) -> Tuple[ConeProgram, list]:
+    """Pad a list of same-n conic instances to a shared cone spec and stack.
+    Returns (batched_cp, original_specs) for unpadding."""
+    if len({cp.num_vars for cp in cps}) != 1:
+        raise ValueError("pad_and_stack_cones requires a shared variable count")
+    target = cone_pad_spec([cp.cones for cp in cps])
+    padded = [pad_cone_program(cp, target) for cp in cps]
+    batched = ConeProgram(
+        A=torch.stack([q.A for q in padded]), b=torch.stack([q.b for q in padded]),
+        c=torch.stack([q.c for q in padded]), cones=target,
+    )
+    return batched, [cp.cones for cp in cps]
+
+
+def _cone_row_index(spec: ConeSpec, target: ConeSpec, device) -> torch.Tensor:
+    rows = [np.arange(t_off, t_off + s_dim) for (_, _, s_dim), (_, t_off, _) in zip(spec.offsets(), target.offsets())]
+    return torch.as_tensor(np.concatenate(rows) if rows else np.zeros((0,), np.int64), device=device)
+
+
+def unpad_cone_solution(sol: ConeSolution, specs: list, target: ConeSpec) -> List[ConeSolution]:
+    """Slice a batched solution back to each instance's original rows."""
+    out = []
+    for i, spec in enumerate(specs):
+        idx = _cone_row_index(spec, target, sol.y.device)
+        out.append(ConeSolution(x=sol.x[i], y=sol.y[i, idx], s=sol.s[i, idx]))
+    return out
+
+
+def unpad_cone_tangent(tan, specs: list, target: ConeSpec):
+    """Slice padded-batch data gradients (a batched
+    :class:`~diffopt_tpu_torch.ir.ConeTangent`, or a ``ConeProgram``-shaped
+    struct of gradients) back to each instance's original rows. Padding rows
+    are strictly inactive with zero dual, so on the original rows the padded
+    solution map — and its gradient — is the unpadded one."""
+    is_tan = isinstance(tan, ConeTangent)
+    A, b, c = tan.tensors()
+    out = []
+    for i, spec in enumerate(specs):
+        idx = _cone_row_index(spec, target, A.device)
+        vals = (A[i, idx, :], b[i, idx], c[i])
+        out.append(ConeTangent(*vals) if is_tan else ConeProgram(*vals, cones=spec))
+    return out

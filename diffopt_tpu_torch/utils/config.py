@@ -44,6 +44,31 @@ class DiffOptConfig:
     qp_reg_f64: float = 1e-11
     qp_reg_f32: float = 1e-7
 
+    # --- embedded conic interior-point solver -------------------------------
+    # read by solvers/conic_ipm.py (NT-scaled IPM, symmetric cones:
+    # zero/nonneg/nonpos/soc/rsoc/psd) and ops/cuda/conic_pdip.py
+    ipm_max_iters: int = 50
+    ipm_tol_f64: float = 1e-9
+    ipm_tol_f32: float = 5e-6
+    ipm_reg_f64: float = 1e-11
+    ipm_reg_f32: float = 1e-7
+
+    # --- conic differentiation ----------------------------------------------
+    # read by conic_diff.resolve_method and solve.solve_conic. 'auto' =
+    # size-aware: dense 'lstsq' below conic_lsqr_threshold, the matrix-free
+    # 'lsqr' above it
+    conic_method: str = "auto"  # 'auto' | 'lstsq' | 'lu' | 'qr' | 'gram' | 'lsqr'
+    conic_lsqr_threshold: int = 500  # dim(M) = n + m + 1 above which 'auto' -> 'lsqr'
+    conic_lsqr_iters: int = 1000  # cap of the LSQR loop (it exits at its tolerance)
+    conic_refine_iters: int = 0
+    # f32 M-solves refine by default: with residual_dtype accumulation the two
+    # passes take the forward error down to about the f32 storage epsilon
+    conic_refine_iters_f32: int = 2
+    # Newton polish of the solved point against the HSDE residual map
+    # (conic_diff.refine_solution); f64 solves already sit at ~1e-9
+    conic_polish_steps_f64: int = 0
+    conic_polish_steps_f32: int = 2
+
     # --- solve-status semantics ----------------------------------------------
     # NaN-poison the solution (and hence anything differentiated through it)
     # of non-converged instances in the solve_* AD entry points. Off by default
@@ -57,6 +82,20 @@ class DiffOptConfig:
 
     def qp_reg(self, dtype) -> float:
         return self.qp_reg_f64 if dtype == torch.float64 else self.qp_reg_f32
+
+    def ipm_tol(self, dtype) -> float:
+        return self.ipm_tol_f64 if dtype == torch.float64 else self.ipm_tol_f32
+
+    def ipm_reg(self, dtype) -> float:
+        return self.ipm_reg_f64 if dtype == torch.float64 else self.ipm_reg_f32
+
+    def conic_refine(self, dtype) -> int:
+        if dtype == torch.float64:
+            return self.conic_refine_iters
+        return max(self.conic_refine_iters, self.conic_refine_iters_f32)
+
+    def conic_polish_steps(self, dtype) -> int:
+        return self.conic_polish_steps_f64 if dtype == torch.float64 else self.conic_polish_steps_f32
 
     def ldl_lam_floor(self, dtype) -> float:
         return self.ldl_lam_floor_f64 if dtype == torch.float64 else self.ldl_lam_floor_f32

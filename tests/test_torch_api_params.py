@@ -88,6 +88,29 @@ def test_qp_diff_context_cached_forward_reverse_match_jax():
     assert info.iterations.dtype == torch.int32 and info.converged.dtype == torch.bool
 
 
+def test_qp_diff_context_takes_one_unbatched_instance_as_jax_does():
+    data = _instance(4, 3, 2, seed=5)
+    rng = np.random.default_rng(6)
+    ctx = dtt.QPDiffContext(_tq(data))
+    assert ctx.sol.z.shape == (4,) and ctx.solve_info.converged.shape == ()
+    jctx = dj.QPDiffContext(_jq(data))  # the JAX class solves the one instance itself
+    np.testing.assert_allclose(ctx.sol.z.numpy(), np.asarray(jctx.sol.z), rtol=0, atol=1e-8)
+    sol_np = dtt.convert.to_numpy(ctx.sol)
+    jctx = dj.QPDiffContext(_jq(data), dj.QPSolution(**{k: jnp.asarray(v) for k, v in sol_np.items()}))
+    tan = {"d" + k: 0.1 * rng.normal(size=v.shape) for k, v in data.items()}
+    seeds = [rng.normal(size=k) for k in (4, 3, 2)]
+    jd = jctx.forward(dj.QPTangent(**{k: jnp.asarray(v) for k, v in tan.items()}))
+    jg = jctx.reverse(*map(jnp.asarray, seeds))
+    td = ctx.forward(dtt.convert.qptangent_from_numpy(tan, dtype=torch.float64, device="cpu"))
+    tg = ctx.reverse(*(torch.from_numpy(x) for x in seeds))
+    for name in ("dz", "dlam", "dnu"):
+        assert getattr(td, name).shape == np.asarray(getattr(jd, name)).shape
+        np.testing.assert_allclose(getattr(td, name).numpy(), np.asarray(getattr(jd, name)), rtol=0, atol=1e-9, err_msg=name)
+    for name in TNAMES:
+        assert getattr(tg, name).shape == np.asarray(getattr(jg, name)).shape
+        np.testing.assert_allclose(getattr(tg, name).numpy(), np.asarray(getattr(jg, name)), rtol=0, atol=1e-9, err_msg=name)
+
+
 def test_qp_diff_context_refuses_unconverged():
     data = _instance(4, 3, 0, seed=5, batch=(2,))
     data["G"][1, :2] = 0.0  # z_0 <= -1 and -z_0 <= -1 contradict each other
@@ -146,11 +169,10 @@ def test_parametric_program_quadratic_and_bilinear_parameters_dict_theta():
     dth = layer.reverse_differentiate(theta, dz=torch.tensor([1.0], dtype=torch.float64))
     assert set(dth) == {"p", "c"}
     np.testing.assert_allclose([float(dth["p"]), float(dth["c"])], [3.5, -10.0 / 4.0], rtol=0, atol=1e-5)
-    # no seed, no gradient; kinds of later slices say what they wait for
+    # no seed, no gradient; the kind of a later slice says what it waits for
     assert float(layer.reverse_differentiate(theta)["p"]) == 0.0
-    for kind in ("conic", "nlp"):
-        with pytest.raises(NotImplementedError, match="waits for"):
-            dtt.ParametricProgram(build, kind=kind)
+    with pytest.raises(NotImplementedError, match="waits for"):
+        dtt.ParametricProgram(build, kind="nlp")
     with pytest.raises(ValueError):
         dtt.ParametricProgram(build, kind="sdp")
 

@@ -26,9 +26,10 @@ its state, so the result is the same.
 
 What bounds it on the H100: operations. An instance reads ``(p + mC)(n + 1)
 + n`` words once (the SOCP of BASELINE config 3, n = 16 and SOC(17): 1.2 KB
-in f32) and then does about ``N^3 / 3`` flops for the LDL' plus, per psd
-block of side d, eight Jacobi eigendecompositions of ``~sweeps d^3 * 3``
-flops, per iteration (``chip_smoke.py::conic_pdip_flops_per_iteration``). The critical path is
+in f32) and then, per body, about ``N^3 / 3`` flops for the LDL', two
+direction solves with their refinement residuals, and per psd block of side
+d eight Jacobi eigendecompositions and some forty d x d products
+(``chip_smoke.py::conic_pdip_flops`` counts it all). The critical path is
 sequential — N elimination steps with a block barrier each, 2 N substitution
 steps per solve on one warp, and the psd blocks' rotation chains — so the
 design keeps every operand on chip and lets several blocks share an SM.
@@ -49,15 +50,12 @@ reports its 128-instance tile's loop count, this kernel the instance's own
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Tuple
 
-import numpy as np
 import torch
 
-from ...cones import _tri_order
-from ...solvers.conic_ipm import _J, _psd_slices, _soc_slices
-from ..smalleig import MAX_JACOBI_SIDE, _sweeps_for, jacobi_eigh
+from .. import jordan
+from ..smalleig import MAX_JACOBI_SIDE
 from .chol import MAX_SMEM_BYTES, _SUFFIX, _odd, _require_cuda, ldl_batched_plain, ldl_solve_batched_plain
 
 Tensor = torch.Tensor
@@ -69,7 +67,6 @@ _SLOTS = 64  # kNumSlots
 _COLBUF = 256  # kColbufWords of dense.cuh
 _WARPS = 8
 _STATIC_SMEM = 1024  # room for the kernel's static shared memory (its pointer table)
-BIG = 3.4e38  # "no boundary" step length of the reference
 
 
 def smem_bytes(n: int, p: int, l: int, soc_dims, psd_sides, itemsize: int) -> int:
@@ -101,61 +98,6 @@ def in_envelope(n: int, p: int, l: int, soc_dims, psd_sides, itemsize: int) -> b
 # --- plain version ----------------------------------------------------------
 
 
-def _svec_tables(d, like):
-    """Index map (d*d -> svec entry) and the entry scale (1 on the diagonal,
-    1/sqrt2 off it) of the kernel's svec -> matrix conversion."""
-    isq = 1.0 / math.sqrt(2.0)
-    index = np.zeros((d, d), dtype=np.int64)
-    scale = np.zeros((d, d))
-    for k, (r, c) in enumerate(_tri_order(d)):
-        index[r, c] = index[c, r] = k
-        scale[r, c] = scale[c, r] = 1.0 if r == c else isq
-    return (
-        torch.as_tensor(index.reshape(-1), device=like.device),
-        torch.as_tensor(scale, dtype=like.dtype, device=like.device),
-    )
-
-
-def _to_mat(u, d):
-    """svec block ``(B, tri)`` -> symmetric ``(B, d, d)`` (off-diagonal entries times 1/sqrt2)."""
-    idx, scale = _svec_tables(d, u)
-    return u[..., idx].reshape(u.shape[:-1] + (d, d)) * scale
-
-
-def _to_svec(M, d):
-    """Symmetric ``(B, d, d)`` -> svec ``(B, tri)``, symmetrizing."""
-    h = 0.5 * math.sqrt(2.0)
-    parts = [M[..., r, r] if r == c else (M[..., r, c] + M[..., c, r]) * h for (r, c) in _tri_order(d)]
-    return torch.stack(parts, dim=-1)
-
-
-def _sym(M):
-    return 0.5 * (M + M.transpose(-1, -2))
-
-
-def _jdet_sqrt(u, eps):
-    nu1 = torch.sqrt((u[..., 1:] ** 2).sum(-1))
-    det = (u[..., 0] - nu1) * (u[..., 0] + nu1)
-    return torch.sqrt(torch.maximum(det, eps * u[..., 0] ** 2))
-
-
-def _eigh(X, vectors=True):
-    return jacobi_eigh(X, _sweeps_for(X.shape[-1], X.dtype), vectors=vectors)
-
-
-def _floored_eigs(w, eps):
-    """The reference's relative eigenvalue floor: max(w, eps max(max w, 0), 1e-30)."""
-    wf = torch.maximum(w, eps * torch.clamp(w.amax(-1, keepdim=True), min=0.0))
-    return torch.clamp(wf, min=1e-30)
-
-
-def _psd_sqrt_pair(X, eps):
-    w, V = _eigh(X)
-    sq = torch.sqrt(_floored_eigs(w, eps))
-    Vt = V.transpose(-1, -2)
-    return (V * sq[..., None, :]) @ Vt, (V / sq[..., None, :]) @ Vt
-
-
 def solve_tile_fused_plain(
     c: Tensor, bE: Tensor, bC: Tensor, AE: Tensor, AC: Tensor,
     layout: Tuple[int, int, Tuple[int, ...], Tuple[int, ...]],
@@ -166,8 +108,8 @@ def solve_tile_fused_plain(
     eps: float = 1e-7,
 ):
     """Plain PyTorch version of the fused kernel: the same algorithm and
-    constants on ``(B, ...)`` tensors (the Jacobi of ``ops/smalleig.py``, the
-    plain LDL' pair of ``ops/cuda/chol.py``), per-instance freeze by
+    constants on ``(B, ...)`` tensors (the cone algebra of ``ops/jordan.py``,
+    the plain LDL' pair of ``ops/cuda/chol.py``), per-instance freeze by
     ``torch.where`` (never ``alpha = 0``), and a loop that stops once every
     instance is frozen. Same signature and outputs as
     :func:`solve_tile_fused`."""
@@ -175,185 +117,23 @@ def solve_tile_fused_plain(
     B, n = c.shape
     mC = bC.shape[-1]
     dt, dev = c.dtype, c.device
-    socs = _soc_slices(l, soc_dims)
-    psds = list(zip(psd_sides, _psd_slices(l, soc_dims, psd_sides)))
+    cones = (l, soc_dims, psd_sides)
     nu_deg = max(l + len(soc_dims) + sum(psd_sides), 1)
-    mv = lambda M, v: torch.einsum("bij,bj->bi", M, v)
-    rmv = lambda M, v: torch.einsum("bij,bi->bj", M, v)
-    big = torch.tensor(BIG, dtype=dt, device=dev)
-    sq2 = math.sqrt(2.0)
-
-    e1 = torch.zeros(mC, dtype=dt, device=dev)
-    e1[:l] = 1.0
-    for sl in socs:
-        e1[sl.start] = 1.0
-    for d, sl in psds:
-        for k, (r, cc) in enumerate(_tri_order(d)):
-            if r == cc:
-                e1[sl.start + k] = 1.0
-    e = e1.expand(B, mC)
-
-    def nt_scaling(s, y):
-        w = torch.sqrt(s[:, :l] / y[:, :l]) if l else None
-        blocks = []
-        for sl in socs:
-            rs, ry = _jdet_sqrt(s[:, sl], eps), _jdet_sqrt(y[:, sl], eps)
-            sb, yb = s[:, sl] / rs[:, None], y[:, sl] / ry[:, None]
-            gamma = torch.sqrt(torch.clamp((1.0 + (sb * yb).sum(-1)) / 2.0, min=eps))
-            wb = (sb + _J(yb)) / (2.0 * gamma)[:, None]
-            v = torch.cat([wb[:, :1] + 1.0, wb[:, 1:]], dim=-1) / torch.sqrt(
-                2.0 * torch.clamp(wb[:, 0] + 1.0, min=eps)
-            )[:, None]
-            blocks.append((torch.sqrt(rs / ry), v, wb))
-        pblocks = []
-        for d, sl in psds:
-            # W_nt = S^1/2 (S^1/2 Y S^1/2)^-1/2 S^1/2, stored with its square-root pair
-            S, Y = _to_mat(s[:, sl], d), _to_mat(y[:, sl], d)
-            Sh, _ = _psd_sqrt_pair(S, eps)
-            Z = Sh @ (Y @ Sh)
-            _, Zih = _psd_sqrt_pair(_sym(Z), eps)
-            Wnt = _sym(Sh @ (Zih @ Sh))
-            Rb, Rbi = _psd_sqrt_pair(Wnt, eps)
-            pblocks.append((Rb, Rbi, Wnt))
-        return w, blocks, pblocks
-
-    def W_apply(sc, u, inv):
-        w, blocks, pblocks = sc
-        parts = [u[:, :l] / w if inv else u[:, :l] * w] if l else []
-        for sl, (eta, v, _) in zip(socs, blocks):
-            ub = u[:, sl]
-            if inv:
-                ju = _J(ub)
-                vju = (v * ju).sum(-1)
-                parts.append((2.0 * _J(v) * vju[:, None] - ju) / eta[:, None])
-            else:
-                vu = (v * ub).sum(-1)
-                parts.append((2.0 * v * vu[:, None] - _J(ub)) * eta[:, None])
-        for (d, sl), (Rb, Rbi, _) in zip(psds, pblocks):
-            Rm = Rbi if inv else Rb
-            parts.append(_to_svec(Rm @ (_to_mat(u[:, sl], d) @ Rm), d))
-        return torch.cat(parts, dim=-1)
-
-    def w2_dense(sc):
-        """W^2 as a dense block-diagonal (B, mC, mC): diag(w^2); eta^2 (2 wb wb' - J) per soc block;
-        the symmetric Kronecker square of W_nt per psd block."""
-        w, blocks, pblocks = sc
-        W2 = torch.zeros(B, mC, mC, dtype=dt, device=dev)
-        if l:
-            W2[:, :l, :l] = torch.diag_embed(w * w)
-        for sl, (eta, _, wb) in zip(socs, blocks):
-            d = sl.stop - sl.start
-            Jd = torch.diag(torch.tensor([1.0] + [-1.0] * (d - 1), dtype=dt, device=dev))
-            W2[:, sl, sl] = (2.0 * wb[:, :, None] * wb[:, None, :] - Jd) * (eta * eta)[:, None, None]
-        for (d, sl), (_, _, P) in zip(psds, pblocks):
-            order = np.array(_tri_order(d))
-            wts = np.where(order[:, 0] == order[:, 1], 1.0, sq2)
-            coef = torch.as_tensor(0.5 * wts[:, None] * wts[None, :], dtype=dt, device=dev)
-            i, j = order[:, 0][:, None], order[:, 1][:, None]
-            k, l_ = order[:, 0][None, :], order[:, 1][None, :]
-            W2[:, sl, sl] = coef * (P[:, i, k] * P[:, j, l_] + P[:, i, l_] * P[:, j, k])
-        return W2
-
-    def jmul(u, v):
-        parts = [u[:, :l] * v[:, :l]] if l else []
-        for sl in socs:
-            ub, vb = u[:, sl], v[:, sl]
-            parts.append(torch.cat([(ub * vb).sum(-1, keepdim=True), ub[:, :1] * vb[:, 1:] + vb[:, :1] * ub[:, 1:]], -1))
-        for d, sl in psds:
-            parts.append(_to_svec(_to_mat(u[:, sl], d) @ _to_mat(v[:, sl], d), d))
-        return torch.cat(parts, dim=-1)
-
-    def jsolve(lam, dd, peigs):
-        parts = [dd[:, :l] / lam[:, :l]] if l else []
-        for sl in socs:
-            lb, db = lam[:, sl], dd[:, sl]
-            nl1 = torch.sqrt((lb[:, 1:] ** 2).sum(-1))
-            det = (lb[:, 0] - nl1) * (lb[:, 0] + nl1)
-            floor = eps * lb[:, 0] ** 2
-            det = torch.where(det.abs() > floor, det, floor)
-            g0 = (lb[:, 0] * db[:, 0] - (lb[:, 1:] * db[:, 1:]).sum(-1)) / det
-            g1 = (db[:, 1:] - lb[:, 1:] * g0[:, None]) / lb[:, :1]
-            parts.append(torch.cat([g0[:, None], g1], dim=-1))
-        for (d, sl), (w, Q) in zip(psds, peigs):
-            # Lyapunov solve L G + G L = 2 D in the eigenbasis of lam
-            D = _to_mat(dd[:, sl], d)
-            denom = w[:, :, None] + w[:, None, :]
-            floor = (eps * w.abs().amax(-1))[:, None, None]
-            denom = torch.where(denom.abs() > floor, denom, floor)
-            Qt = Q.transpose(-1, -2)
-            inner = (Qt @ ((2.0 * D) @ Q)) / denom
-            parts.append(_to_svec(Q @ (inner @ Qt), d))
-        return torch.cat(parts, dim=-1)
-
-    def max_step(u, du, isqs):
-        if l:
-            ratio = torch.where(du[:, :l] < 0, -u[:, :l] / du[:, :l], big)
-            amax = ratio.amin(-1)
-        else:
-            amax = big.expand(B)
-        for (d, sl), Uih in zip(psds, isqs):
-            # alpha_max = -1 / lambda_min(U^-1/2 dU U^-1/2) when that minimum is < 0
-            Bm = Uih @ (_to_mat(du[:, sl], d) @ Uih)
-            lmin = _eigh(_sym(Bm), vectors=False)[0].amin(-1)
-            neg = torch.where(lmin < 0, lmin, -torch.ones_like(lmin))
-            amax = torch.minimum(amax, torch.where(lmin < 0, -1.0 / neg, big))
-        for sl in socs:
-            ub, db = u[:, sl], du[:, sl]
-            qa = db[:, 0] ** 2 - (db[:, 1:] ** 2).sum(-1)
-            qb = 2.0 * (ub[:, 0] * db[:, 0] - (ub[:, 1:] * db[:, 1:]).sum(-1))
-            nu1 = torch.sqrt((ub[:, 1:] ** 2).sum(-1))
-            qc = torch.clamp((ub[:, 0] - nu1) * (ub[:, 0] + nu1), min=0.0)
-            disc = qb**2 - 4.0 * qa * qc
-            sq = torch.sqrt(torch.clamp(disc, min=0.0))
-            safe_a = torch.where(qa.abs() > 1e-30, qa, torch.ones_like(qa))
-            r1 = (-qb - sq) / (2.0 * safe_a)
-            r2 = (-qb + sq) / (2.0 * safe_a)
-            rlin = torch.where(qb < 0, -qc / torch.where(qb < 0, qb, torch.ones_like(qb)), big)
-            quad = torch.minimum(torch.where(r1 > 0, r1, big), torch.where(r2 > 0, r2, big))
-            root = torch.where(qa.abs() > 1e-30, torch.where(disc >= 0, quad, big), rlin)
-            cap = torch.where(db[:, 0] < 0, -ub[:, 0] / torch.where(db[:, 0] < 0, db[:, 0], torch.ones_like(qa)), big)
-            amax = torch.minimum(amax, torch.minimum(root, cap))
-        return torch.clamp(amax, max=1.0)
-
-    def residuals(x, yE, yC, s):
-        rd = c + rmv(AC, yC)
-        if p:
-            rd = rd + rmv(AE, yE)
-        rpE = mv(AE, x) - bE
-        rpC = mv(AC, x) + s - bC
-        return rd, rpE, rpC
-
-    def metrics(x, yE, yC, s, rd, rpE, rpC):
-        nrm = lambda u: torch.sqrt((u * u).sum(-1))
-        AxC = rpC - s + bC
-        Ax2 = (AxC * AxC).sum(-1)
-        b2 = (bC * bC).sum(-1)
-        pres2 = (rpC * rpC).sum(-1)
-        if p:
-            AxE = rpE + bE
-            Ax2 = Ax2 + (AxE * AxE).sum(-1)
-            b2 = b2 + (bE * bE).sum(-1)
-            pres2 = pres2 + (rpE * rpE).sum(-1)
-        psc = 1.0 + torch.maximum(torch.sqrt(Ax2), torch.maximum(nrm(s), torch.sqrt(b2)))
-        pres = torch.sqrt(pres2) / psc
-        dres = nrm(rd) / (1.0 + torch.maximum(nrm(rd - c), nrm(c)))
-        pobj = (c * x).sum(-1)
-        dobj = -(bC * yC).sum(-1)
-        if p:
-            dobj = dobj - (bE * yE).sum(-1)
-        gaprel = (pobj - dobj).abs() / (1.0 + pobj.abs() + dobj.abs())
-        return pres, dres, gaprel
+    e = jordan.identity_elem(*cones, dt, dev).expand(B, mC)
+    W = lambda sc, u: jordan.w_apply(*cones, sc, u, False)
+    Winv = lambda sc, u: jordan.w_apply(*cones, sc, u, True)
+    residuals = lambda x, yE, yC, s: jordan.residuals(c, AE, bE, AC, bC, x, yE, yC, s)
+    metrics = lambda x, yE, yC, s, r: jordan.metrics(c, bE, bC, x, yE, yC, s, *r)
 
     eye_n = reg * torch.eye(n, dtype=dt, device=dev).expand(B, n, n)
     eye_p = -reg * torch.eye(p, dtype=dt, device=dev).expand(B, p, p)
-    ACt, AEt = AC.transpose(1, 2), AE.transpose(1, 2)
     zCp = torch.zeros(B, mC, p, dtype=dt, device=dev)
 
     def factor(sc):
         # [cone | x | eq]: the unpivoted LDL' eliminates the O(1) -W^2 block first
         K = torch.cat([
-            torch.cat([-w2_dense(sc), AC, zCp], dim=2),
-            torch.cat([ACt, eye_n, AEt], dim=2),
+            torch.cat([-jordan.w2_dense(*cones, sc), AC, zCp], dim=2),
+            torch.cat([AC.transpose(1, 2), eye_n, AE.transpose(1, 2)], dim=2),
             torch.cat([zCp.transpose(1, 2), AE, eye_p], dim=2),
         ], dim=1)
         L, dv = ldl_batched_plain(K)
@@ -363,36 +143,19 @@ def solve_tile_fused_plain(
 
     def solve_dir(F, sc, rd, rpE, rpC, g):
         L, dv, K = F
-        rhs = torch.cat([-rpC + W_apply(sc, g, False), -rd, -rpE], dim=-1)
+        rhs = torch.cat([-rpC + W(sc, g), -rd, -rpE], dim=-1)
         sol = ldl_solve_batched_plain(L, dv, rhs)
         for _ in range(passes):  # refinement against the assembled K
             resid = rhs - torch.einsum("bij,bj->bi", K, sol)
             sol = sol + ldl_solve_batched_plain(L, dv, resid)
         dyC, dx, dyE = sol[:, :mC], sol[:, mC:mC + n], sol[:, mC + n:]
-        ds = -W_apply(sc, g + W_apply(sc, dyC, False), False)
-        return dx, dyE, dyC, ds
+        return dx, dyE, dyC, -W(sc, g + W(sc, dyC))
 
-    # ---- init: identity scaling, one solve, then a per-block shift into the interior
-    sc0 = nt_scaling(e, e)
+    # ---- init: identity scaling, one solve from the zero iterate, then a per-block shift into the interior
+    sc0 = jordan.nt_scaling(*cones, e, e, eps)
     zx, zE, zC = c.new_zeros(B, n), c.new_zeros(B, p), c.new_zeros(B, mC)
-    dx0, dyE0, _, _ = solve_dir(factor(sc0), sc0, *residuals(zx, zE, zC, zC), -e)
-    x, yE = dx0, dyE0
-    s0 = bC - mv(AC, x)
-    parts = []
-    if l:
-        sh = torch.clamp(-1.5 * s0[:, :l].amin(-1), min=0.0) + 1.0
-        parts.append(s0[:, :l] + sh[:, None])
-    for sl in socs:
-        sb = s0[:, sl]
-        excess = torch.sqrt((sb[:, 1:] ** 2).sum(-1)) - sb[:, 0]
-        shb = torch.clamp(1.5 * excess, min=0.0) + 1.0
-        parts.append(torch.cat([sb[:, :1] + shb[:, None], sb[:, 1:]], dim=-1))
-    for d, sl in psds:
-        sb = s0[:, sl]
-        wmin = _eigh(_to_mat(sb, d), vectors=False)[0].amin(-1)
-        shb = torch.clamp(-1.5 * wmin, min=0.0) + 1.0
-        parts.append(sb + shb[:, None] * e[:, sl])
-    s = torch.cat(parts, dim=-1)
+    x, yE, _, _ = solve_dir(factor(sc0), sc0, *residuals(zx, zE, zC, zC), -e)
+    s = jordan.shift_into_interior(*cones, bC - torch.einsum("bij,bj->bi", AC, x), e)
     yC = e.clone()
 
     huge = torch.full((B,), 1e30, dtype=dt, device=dev)
@@ -403,9 +166,9 @@ def solve_tile_fused_plain(
     own = torch.full((B,), max_iters, dtype=torch.int32, device=dev)
     active = torch.ones(B, dtype=torch.bool, device=dev)
     for it in range(max_iters):
-        rd, rpE, rpC = residuals(x, yE, yC, s)
+        r = residuals(x, yE, yC, s)
         mu = (s * yC).sum(-1) / nu_deg
-        pres, dres, gaprel = metrics(x, yE, yC, s, rd, rpE, rpC)
+        pres, dres, gaprel = metrics(x, yE, yC, s, r)
         done = (pres < tol) & (dres < tol) & (gaprel < tol)
         err = torch.maximum(torch.maximum(pres, dres), gaprel)
         better = (err < errb) & active
@@ -416,27 +179,24 @@ def solve_tile_fused_plain(
         stall = torch.where(stalled_now, stall + 1, torch.zeros_like(stall))
         stalled = stall >= 5
 
-        sc = nt_scaling(s, yC)
+        sc = jordan.nt_scaling(*cones, s, yC, eps)
         F = factor(sc)
-        lam = W_apply(sc, s, True)
-        # one eigendecomposition per psd block of lam serves the Lyapunov solve and all four step lengths
-        peigs = [_eigh(_to_mat(lam[:, sl], d)) for d, sl in psds]
-        isqs = [(Q / torch.sqrt(_floored_eigs(w, eps))[:, None, :]) @ Q.transpose(-1, -2) for w, Q in peigs]
+        lam = Winv(sc, s)
+        peigs = jordan.lam_psd_eigs(*cones, lam)
+        isqs = jordan.lam_psd_isqrts(peigs, eps)
 
-        _, _, dyCa, dsa = solve_dir(F, sc, rd, rpE, rpC, lam)
-        dsa_s = W_apply(sc, dsa, True)
-        dya_s = W_apply(sc, dyCa, False)
-        a_p = max_step(lam, dsa_s, isqs)
-        a_d = max_step(lam, dya_s, isqs)
+        # predictor: g = lam
+        _, _, dyCa, dsa = solve_dir(F, sc, *r, lam)
+        dsa_s, dya_s = Winv(sc, dsa), W(sc, dyCa)
+        a_p, a_d = jordan.max_step_pair(*cones, lam, dsa_s, dya_s, isqs)
         mu_aff = ((s + a_p[:, None] * dsa) * (yC + a_d[:, None] * dyCa)).sum(-1) / nu_deg
         sigma = torch.clamp((mu_aff / torch.clamp(mu, min=1e-30)) ** 3, 0.0, 1.0)
-        comp = jmul(lam, lam) + jmul(dsa_s, dya_s) - (sigma * mu)[:, None] * e
-        g = jsolve(lam, comp, peigs)
-        dx, dyE, dyC, ds = solve_dir(F, sc, rd, rpE, rpC, g)
-        alpha = 0.99 * torch.minimum(
-            max_step(lam, W_apply(sc, ds, True), isqs), max_step(lam, W_apply(sc, dyC, False), isqs)
-        )
-        alpha = torch.clamp(alpha, max=1.0)
+        # corrector with the Mehrotra second-order term in the scaled variables
+        comp = jordan.jmul(*cones, lam, lam) + jordan.jmul(*cones, dsa_s, dya_s) - (sigma * mu)[:, None] * e
+        g = jordan.jsolve(*cones, lam, comp, eps, peigs)
+        dx, dyE, dyC, ds = solve_dir(F, sc, *r, g)
+        alpha = torch.clamp(0.99 * torch.minimum(*jordan.max_step_pair(*cones, lam, Winv(sc, ds), W(sc, dyC), isqs)),
+                            max=1.0)
 
         finite = (
             torch.isfinite(dx).all(-1) & torch.isfinite(dyC).all(-1) & torch.isfinite(ds).all(-1)
@@ -456,15 +216,13 @@ def solve_tile_fused_plain(
             break
 
     # score the exit state once (it never got a best-update inside the loop)
-    rd, rpE, rpC = residuals(x, yE, yC, s)
-    pres, dres, gaprel = metrics(x, yE, yC, s, rd, rpE, rpC)
+    pres, dres, gaprel = metrics(x, yE, yC, s, residuals(x, yE, yC, s))
     err = torch.maximum(torch.maximum(pres, dres), gaprel)
     fin = torch.isfinite(x).all(-1) & torch.isfinite(yC).all(-1)
     last = ((err < errb) & fin)[:, None]
     x, yE, yC, s = (torch.where(last, a, b_) for a, b_ in ((x, xb), (yE, yEb), (yC, yCb), (s, sb_)))
     # the metrics OF THE RETURNED STATE, split into primal / dual
-    rd, rpE, rpC = residuals(x, yE, yC, s)
-    pres, dres, _ = metrics(x, yE, yC, s, rd, rpE, rpC)
+    pres, dres, _ = metrics(x, yE, yC, s, residuals(x, yE, yC, s))
     its = torch.where(itdone >= 0, itdone, own)
     return x, yE, yC, s, its, pres, dres
 

@@ -33,15 +33,15 @@ slice of the port that brings kernel K7, and until then they raise
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from ..cones import _tri_side, svec_to_sym, sym_to_svec
+from ..cones import _tri_side
 from ..ir import ConeProgram, ConeSolution
-from ..ops.cuda import chol
-from ..ops.smalleig import eigh_small, eigvalsh_small
+from ..ops import jordan
+from ..ops.cuda import chol, conic_pdip
 from ..utils.config import get_config
 from ..utils.precision import full_precision
 from .conic import ConicSolveInfo
@@ -118,245 +118,6 @@ def _row_transform(cones):
     return R, p, l, tuple(soc_dims), tuple(psd_sides)
 
 
-# --- Jordan-algebra / NT-scaling helpers on the [nonneg | soc... | psd...]
-# block. Vectors are (B, mC) or (B, k, mC) with the blocks along the last
-# dimension; the scaling carries a leading batch dimension B.
-
-
-def _soc_slices(l, soc_dims):
-    out, off = [], l
-    for d in soc_dims:
-        out.append(slice(off, off + d))
-        off += d
-    return out
-
-
-def _psd_slices(l, soc_dims, psd_sides):
-    out, off = [], l + sum(soc_dims)
-    for d in psd_sides:
-        tri = d * (d + 1) // 2
-        out.append(slice(off, off + tri))
-        off += tri
-    return out
-
-
-def _eps(dt) -> float:
-    return 1e-14 if dt == torch.float64 else 1e-7
-
-
-def _jmul(l, soc_dims, psd_sides, u, v):
-    """Jordan product u o v (elementwise on nonneg, arrow product per soc,
-    symmetrized matrix product per psd block)."""
-    parts = [u[..., :l] * v[..., :l]]
-    for sl in _soc_slices(l, soc_dims):
-        ub, vb = u[..., sl], v[..., sl]
-        head = (ub * vb).sum(-1, keepdim=True)
-        parts.append(torch.cat([head, ub[..., :1] * vb[..., 1:] + vb[..., :1] * ub[..., 1:]], dim=-1))
-    for sl in _psd_slices(l, soc_dims, psd_sides):
-        U, V = svec_to_sym(u[..., sl]), svec_to_sym(v[..., sl])
-        parts.append(sym_to_svec(0.5 * (U @ V + V @ U)))
-    return torch.cat(parts, dim=-1)
-
-
-def _lam_psd_eigs(l, soc_dims, psd_sides, lam):
-    """One eigendecomposition of each PSD block of the scaled point lam, shared
-    by the Lyapunov jsolve and all four step-to-boundary computations."""
-    return [eigh_small(svec_to_sym(lam[..., sl])) for sl in _psd_slices(l, soc_dims, psd_sides)]
-
-
-def _jsolve(l, soc_dims, psd_sides, lam, d, psd_eigs=None):
-    """Solve lam o g = d for g (inverse arrow operator per soc block; a
-    Lyapunov solve L G + G L = 2 D via eigh per psd block)."""
-    parts = [d[..., :l] / lam[..., :l]]
-    eps = _eps(lam.dtype)
-    for sl in _soc_slices(l, soc_dims):
-        lb, db = lam[..., sl], d[..., sl]
-        nl1 = torch.linalg.vector_norm(lb[..., 1:], dim=-1)
-        det = (lb[..., 0] - nl1) * (lb[..., 0] + nl1)
-        floor = eps * lb[..., 0] ** 2
-        det = torch.where(det.abs() > floor, det, floor)
-        g0 = (lb[..., 0] * db[..., 0] - (lb[..., 1:] * db[..., 1:]).sum(-1)) / det
-        g1 = (db[..., 1:] - lb[..., 1:] * g0[..., None]) / lb[..., :1]
-        parts.append(torch.cat([g0[..., None], g1], dim=-1))
-    for k, sl in enumerate(_psd_slices(l, soc_dims, psd_sides)):
-        D = svec_to_sym(d[..., sl])
-        w, Q = psd_eigs[k] if psd_eigs is not None else eigh_small(svec_to_sym(lam[..., sl]))
-        denom = w[..., :, None] + w[..., None, :]
-        floor = (eps * w.abs().amax(-1))[..., None, None]
-        denom = torch.where(denom.abs() > floor, denom, floor)
-        Qt = Q.transpose(-1, -2)
-        parts.append(sym_to_svec(Q @ ((Qt @ (2.0 * D) @ Q) / denom) @ Qt))
-    return torch.cat(parts, dim=-1)
-
-
-def _identity_elem(l, soc_dims, psd_sides, dt, device):
-    parts = [torch.ones(l, dtype=dt, device=device)]
-    for d in soc_dims:
-        e = torch.zeros(d, dtype=dt, device=device)
-        e[0] = 1.0
-        parts.append(e)
-    for d in psd_sides:
-        parts.append(sym_to_svec(torch.eye(d, dtype=dt, device=device)))
-    return torch.cat(parts)
-
-
-class _Scaling(NamedTuple):
-    w: Tensor  # (B, l) nonneg scales sqrt(s/y)
-    etas: Tuple[Tensor, ...]  # per soc: (B,)
-    vs: Tuple[Tensor, ...]  # per soc: (B, d) with v'Jv = 1
-    rs: Tuple[Tensor, ...]  # per psd: symmetric R = W_nt^{1/2} (B, d, d)
-    ris: Tuple[Tensor, ...]  # per psd: R^{-1}
-
-
-def _J(u):
-    return torch.cat([u[..., :1], -u[..., 1:]], dim=-1)
-
-
-def _jdet_sqrt(u, eps):
-    """sqrt(u0^2 - ||u1||^2) in the factored form with a relative floor."""
-    nu1 = torch.linalg.vector_norm(u[..., 1:], dim=-1)
-    det = (u[..., 0] - nu1) * (u[..., 0] + nu1)
-    return torch.sqrt(torch.maximum(det, eps * u[..., 0] ** 2))
-
-
-def _psd_sqrt_pair(X, eps):
-    """(X^{1/2}, X^{-1/2}) of a (nearly) PD symmetric X with a relative eigenvalue floor."""
-    w, Q = eigh_small(X)
-    w = torch.maximum(w, eps * torch.clamp(w.amax(-1, keepdim=True), min=0.0))
-    w = torch.clamp(w, min=1e-30)
-    Qt = Q.transpose(-1, -2)
-    sq = torch.sqrt(w)
-    return (Q * sq[..., None, :]) @ Qt, (Q / sq[..., None, :]) @ Qt
-
-
-def _nt_scaling(l, soc_dims, psd_sides, s, y) -> _Scaling:
-    eps = _eps(s.dtype)
-    w = torch.sqrt(s[..., :l] / y[..., :l])
-    etas, vs = [], []
-    for sl in _soc_slices(l, soc_dims):
-        sb_, yb_ = s[..., sl], y[..., sl]
-        rs, ry = _jdet_sqrt(sb_, eps), _jdet_sqrt(yb_, eps)
-        sb, yb = sb_ / rs[..., None], yb_ / ry[..., None]
-        gamma = torch.sqrt(torch.clamp((1.0 + (sb * yb).sum(-1)) / 2.0, min=eps))
-        wb = (sb + _J(yb)) / (2.0 * gamma)[..., None]
-        v = torch.cat([wb[..., :1] + 1.0, wb[..., 1:]], dim=-1) / torch.sqrt(
-            2.0 * torch.clamp(wb[..., 0] + 1.0, min=eps)
-        )[..., None]
-        etas.append(torch.sqrt(rs / ry))
-        vs.append(v)
-    rs_psd, ris_psd = [], []
-    for sl in _psd_slices(l, soc_dims, psd_sides):
-        # W_nt solves W Y W = S: W = S^1/2 (S^1/2 Y S^1/2)^-1/2 S^1/2, stored as R = W_nt^1/2 and R^-1
-        S, Y = svec_to_sym(s[..., sl]), svec_to_sym(y[..., sl])
-        Sh, _ = _psd_sqrt_pair(S, eps)
-        _, Zih = _psd_sqrt_pair(Sh @ Y @ Sh, eps)
-        Wnt = Sh @ Zih @ Sh
-        Wnt = 0.5 * (Wnt + Wnt.transpose(-1, -2))
-        Rb, Rbi = _psd_sqrt_pair(Wnt, eps)
-        rs_psd.append(Rb)
-        ris_psd.append(Rbi)
-    return _Scaling(w=w, etas=tuple(etas), vs=tuple(vs), rs=tuple(rs_psd), ris=tuple(ris_psd))
-
-
-def _w2_dense(l, soc_dims, psd_sides, sc: _Scaling, B, dt, device):
-    """W^2 as a dense (B, mC, mC) block-diagonal matrix: diag(w^2), eta^2
-    (2vv' - J)^2 per soc block, the symmetric Kronecker of W_nt = R^2 per psd
-    block (columns are svec(W_nt E_j W_nt))."""
-    mC = l + sum(soc_dims) + sum(d * (d + 1) // 2 for d in psd_sides)
-    W2 = torch.zeros(B, mC, mC, dtype=dt, device=device)
-    W2[:, :l, :l] = torch.diag_embed(sc.w**2)
-    off = l
-    for d, eta, v in zip(soc_dims, sc.etas, sc.vs):
-        J = torch.diag(torch.tensor([1.0] + [-1.0] * (d - 1), dtype=dt, device=device))
-        Wb = 2.0 * v[:, :, None] * v[:, None, :] - J
-        W2[:, off:off + d, off:off + d] = (eta**2)[:, None, None] * (Wb @ Wb)
-        off += d
-    for d, Rb in zip(psd_sides, sc.rs):
-        tri = d * (d + 1) // 2
-        Wnt = (Rb @ Rb)[:, None]
-        basis = svec_to_sym(torch.eye(tri, dtype=dt, device=device))
-        cols = sym_to_svec(Wnt @ basis @ Wnt)  # (B, tri, tri): column j in row j
-        W2[:, off:off + tri, off:off + tri] = cols.transpose(1, 2)
-        off += tri
-    return W2
-
-
-def _w_apply(l, soc_dims, psd_sides, sc: _Scaling, u, inv: bool):
-    """Apply W (or W^-1) blockwise to u (B, mC) or (B, k, mC): diag(w) on
-    nonneg; eta (2 v v' - J) on soc (inverse eta^-1 J (2 v v' - J) J); X -> R X
-    R (or R^-1 X R^-1) per psd block."""
-    ex = (lambda t: t.unsqueeze(1)) if u.ndim == 3 else (lambda t: t)
-    w = ex(sc.w)
-    parts = [u[..., :l] / w if inv else u[..., :l] * w]
-    for sl, eta, v in zip(_soc_slices(l, soc_dims), sc.etas, sc.vs):
-        ub, v, eta = u[..., sl], ex(v), ex(eta)[..., None]
-        if inv:
-            ju = _J(ub)
-            out = _J(2.0 * v * (v * ju).sum(-1, keepdim=True) - _J(ju))
-            parts.append(out / eta)
-        else:
-            out = 2.0 * v * (v * ub).sum(-1, keepdim=True) - _J(ub)
-            parts.append(out * eta)
-    for sl, Rb, Rbi in zip(_psd_slices(l, soc_dims, psd_sides), sc.rs, sc.ris):
-        Rm = ex(Rbi if inv else Rb)
-        parts.append(sym_to_svec(Rm @ svec_to_sym(u[..., sl]) @ Rm))
-    return torch.cat(parts, dim=-1)
-
-
-def _soc_boundary_step(ub, db, big):
-    """Step-to-boundary for one soc block: smallest positive root of
-    (u0 + a d0)^2 - ||u1 + a d1||^2 = a^2 qa + a qb + qc = 0 (qc > 0 inside)."""
-    qa = db[..., 0] ** 2 - (db[..., 1:] ** 2).sum(-1)
-    qb = 2.0 * (ub[..., 0] * db[..., 0] - (ub[..., 1:] * db[..., 1:]).sum(-1))
-    nu1 = torch.linalg.vector_norm(ub[..., 1:], dim=-1)
-    qc = torch.clamp((ub[..., 0] - nu1) * (ub[..., 0] + nu1), min=0.0)
-    disc = qb**2 - 4.0 * qa * qc
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    one = torch.ones_like(qa)
-    safe_a = torch.where(qa.abs() > 1e-30, qa, one)
-    r1 = (-qb - sq) / (2.0 * safe_a)
-    r2 = (-qb + sq) / (2.0 * safe_a)
-    rlin = torch.where(qb < 0, -qc / torch.where(qb < 0, qb, one), big)
-    quad_root = torch.minimum(torch.where(r1 > 0, r1, big), torch.where(r2 > 0, r2, big))
-    root = torch.where(qa.abs() > 1e-30, torch.where(disc >= 0, quad_root, big), rlin)
-    # exit through u0 = 0 (cap when the head decreases)
-    cap = torch.where(db[..., 0] < 0, -ub[..., 0] / torch.where(db[..., 0] < 0, db[..., 0], one), big)
-    return torch.minimum(root, cap)
-
-
-def _lam_psd_isqrts(psd_eigs, eps):
-    """lam_blk^{-1/2} per psd block from the shared eigendecomposition."""
-    out = []
-    for w, Q in psd_eigs:
-        wf = torch.maximum(w, eps * torch.clamp(w.amax(-1, keepdim=True), min=0.0))
-        wf = torch.clamp(wf, min=1e-30)
-        out.append((Q / torch.sqrt(wf)[..., None, :]) @ Q.transpose(-1, -2))
-    return out
-
-
-def _max_step_scaled_pair(l, soc_dims, psd_sides, lam, dlam_a, dlam_b, psd_isqrts):
-    """Two step-to-boundary computations from the same scaled point lam, the
-    per-psd-block congruence + eigvalsh of both directions in one stacked call."""
-    big = torch.tensor(float("inf"), dtype=lam.dtype, device=lam.device)
-    amaxes = []
-    for dlam in (dlam_a, dlam_b):
-        ratio = torch.where(dlam[..., :l] < 0, -lam[..., :l] / dlam[..., :l], big)
-        amaxes.append(torch.cat([ratio, big.expand(ratio.shape[:-1] + (1,))], dim=-1).amin(-1))
-    for k, sl in enumerate(_psd_slices(l, soc_dims, psd_sides)):
-        isq = psd_isqrts[k]
-        pair = torch.stack([isq @ svec_to_sym(dlam_a[..., sl]) @ isq, isq @ svec_to_sym(dlam_b[..., sl]) @ isq])
-        lmins = eigvalsh_small(pair).amin(-1)
-        for i in range(2):
-            lmin = lmins[i]
-            amaxes[i] = torch.minimum(
-                amaxes[i], torch.where(lmin < 0, -1.0 / torch.where(lmin < 0, lmin, -torch.ones_like(lmin)), big)
-            )
-    for sl in _soc_slices(l, soc_dims):
-        for i, dlam in enumerate((dlam_a, dlam_b)):
-            amaxes[i] = torch.minimum(amaxes[i], _soc_boundary_step(lam[..., sl], dlam[..., sl], big))
-    return torch.clamp(amaxes[0], max=1.0), torch.clamp(amaxes[1], max=1.0)
-
-
 # --- the staged solver --------------------------------------------------------
 
 
@@ -396,21 +157,18 @@ def solve_batched(
     c = cp.c
     AE, bE, AC, bC = A[:, :p], b[:, :p], A[:, p:], b[:, p:]
     mC = AC.shape[1]
+    cones = (l, soc_dims, psd_sides)
     nu_deg = max(l + len(soc_dims) + sum(psd_sides), 1)
-    e = _identity_elem(l, soc_dims, psd_sides, dt, dev).expand(B, mC)
+    e = jordan.identity_elem(*cones, dt, dev).expand(B, mC)
     eyen = torch.eye(n, dtype=dt, device=dev)
     eyep = torch.eye(p, dtype=dt, device=dev)
-    eps_sc = _eps(dt)
+    eps_sc = jordan.eps_for(dt)
     mv = lambda M, v: torch.einsum("bij,bj->bi", M, v)
     rmv = lambda M, v: torch.einsum("bij,bi->bj", M, v)
-
-    jmul = lambda u, v: _jmul(l, soc_dims, psd_sides, u, v)
-    W = lambda sc, u: _w_apply(l, soc_dims, psd_sides, sc, u, inv=False)
-    Winv = lambda sc, u: _w_apply(l, soc_dims, psd_sides, sc, u, inv=True)
-
-    def residuals(x, yE, yC, s):
-        rd = c + rmv(AC, yC) + rmv(AE, yE)
-        return rd, mv(AE, x) - bE, mv(AC, x) + s - bC
+    W = lambda sc, u: jordan.w_apply(*cones, sc, u, inv=False)
+    Winv = lambda sc, u: jordan.w_apply(*cones, sc, u, inv=True)
+    residuals = lambda x, yE, yC, s: jordan.residuals(c, AE, bE, AC, bC, x, yE, yC, s)
+    metrics = lambda x, yE, yC, s, rd, rpE, rpC: jordan.metrics(c, bE, bC, x, yE, yC, s, rd, rpE, rpC)
 
     use_ldl = (n + p + mC) <= 128
     if use_ldl:
@@ -421,7 +179,7 @@ def solve_batched(
         def factor(sc):
             N = n + p + mC
             K = torch.zeros(B, N, N, dtype=dt, device=dev)
-            K[:, :mC, :mC] = -_w2_dense(l, soc_dims, psd_sides, sc, B, dt, dev)
+            K[:, :mC, :mC] = -jordan.w2_dense(*cones, sc)
             K[:, :mC, mC:mC + n] = AC
             K[:, mC:mC + n, :mC] = AC.transpose(1, 2)
             K[:, mC:mC + n, mC:mC + n] = reg * eyen
@@ -485,41 +243,11 @@ def solve_batched(
         return d
 
     # --- init: one Newton solve at the identity scaling, then shift s and yC into the interior
-    sc0 = _nt_scaling(l, soc_dims, psd_sides, e, e)
+    sc0 = jordan.nt_scaling(*cones, e, e, eps_sc)
     zx, zE, zC = c.new_zeros(B, n), c.new_zeros(B, p), c.new_zeros(B, mC)
-    dx0, dyE0, _, _ = solve_dir(factor(sc0), sc0, *residuals(zx, zE, zC, zC), -e)
-    x, yE = dx0, dyE0
-    s0 = bC - mv(AC, x)
-    parts = []
-    # the reference's min over the nonneg rows starts from 0
-    sh = torch.clamp(-1.5 * torch.cat([s0[:, :l], zC[:, :1]], dim=-1).amin(-1), min=0.0) + 1.0
-    parts.append(s0[:, :l] + sh[:, None])
-    for sl in _soc_slices(l, soc_dims):
-        sb = s0[:, sl]
-        excess = torch.linalg.vector_norm(sb[:, 1:], dim=-1) - sb[:, 0]
-        shb = torch.clamp(1.5 * excess, min=0.0) + 1.0
-        parts.append(torch.cat([sb[:, :1] + shb[:, None], sb[:, 1:]], dim=-1))
-    for d, sl in zip(psd_sides, _psd_slices(l, soc_dims, psd_sides)):
-        sb = s0[:, sl]
-        lmin = eigvalsh_small(svec_to_sym(sb)).amin(-1)
-        shb = torch.clamp(-1.5 * lmin, min=0.0) + 1.0
-        parts.append(sb + shb[:, None] * sym_to_svec(torch.eye(d, dtype=dt, device=dev)))
-    s = torch.cat(parts, dim=-1)
+    x, yE, _, _ = solve_dir(factor(sc0), sc0, *residuals(zx, zE, zC, zC), -e)
+    s = jordan.shift_into_interior(*cones, bC - mv(AC, x), e)
     yC = e.clone()
-
-    def metrics(x, yE, yC, s, rd, rpE, rpC):
-        """SCS-style scale-relative termination metrics."""
-        nrm = lambda u: torch.linalg.vector_norm(u, dim=-1)
-        Ax_sc = torch.maximum(
-            nrm(torch.cat([rpE, rpC], dim=-1) - torch.cat([zE, s], dim=-1) + b),  # = ||A x||
-            torch.maximum(nrm(s), nrm(b)),
-        )
-        pres = torch.sqrt((rpE**2).sum(-1) + (rpC**2).sum(-1)) / (1.0 + Ax_sc)
-        dres = nrm(rd) / (1.0 + torch.maximum(nrm(rd - c), nrm(c)))
-        pobj = (c * x).sum(-1)
-        dobj = -((bE * yE).sum(-1) + (bC * yC).sum(-1))
-        gaprel = (pobj - dobj).abs() / (1.0 + pobj.abs() + dobj.abs())
-        return pres, dres, gaprel
 
     inf = torch.full((B,), float("inf"), dtype=dt, device=dev)
     it = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -538,12 +266,12 @@ def solve_batched(
         pres, dres, gaprel = metrics(x, yE, yC, s, rd, rpE, rpC)
         done_now = (pres < tol) & (dres < tol) & (gaprel < tol)
 
-        sc = _nt_scaling(l, soc_dims, psd_sides, s, yC)
+        sc = jordan.nt_scaling(*cones, s, yC, eps_sc)
         F = factor(sc)
         lam = Winv(sc, s)  # = W yC
-        lam_eigs = _lam_psd_eigs(l, soc_dims, psd_sides, lam)
-        lam_isq = _lam_psd_isqrts(lam_eigs, eps_sc)
-        mstep_pair = lambda da, db_: _max_step_scaled_pair(l, soc_dims, psd_sides, lam, da, db_, lam_isq)
+        lam_eigs = jordan.lam_psd_eigs(*cones, lam)
+        lam_isq = jordan.lam_psd_isqrts(lam_eigs, eps_sc)
+        mstep_pair = lambda da, db_: jordan.max_step_pair(*cones, lam, da, db_, lam_isq)
 
         # predictor (affine): g = lam
         dxa, dyEa, dyCa, dsa = solve_dir(F, sc, rd, rpE, rpC, lam)
@@ -553,8 +281,8 @@ def solve_batched(
         sigma = torch.clamp((mu_aff / torch.clamp(mu, min=1e-300)) ** 3, 0.0, 1.0)
 
         # corrector with the Mehrotra second-order term in the scaled variables
-        comp = jmul(lam, lam) + jmul(dsa_s, dya_s) - (sigma * mu)[:, None] * e
-        g = _jsolve(l, soc_dims, psd_sides, lam, comp, psd_eigs=lam_eigs)
+        comp = jordan.jmul(*cones, lam, lam) + jordan.jmul(*cones, dsa_s, dya_s) - (sigma * mu)[:, None] * e
+        g = jordan.jsolve(*cones, lam, comp, eps_sc, lam_eigs)
         dx, dyE, dyC, ds = solve_dir(F, sc, rd, rpE, rpC, g)
 
         a_cp, a_cd = mstep_pair(Winv(sc, ds), W(sc, dyC))
@@ -625,8 +353,6 @@ def solve_batched_fused(
     the staged solver (:func:`solve_batched`) — chosen by shape, never by a
     failure. ``info.iterations`` is per instance; ``converged`` is
     ``max(pres, dres) < 10 tol`` as in the JAX package's fused route."""
-    from ..ops.cuda import conic_pdip
-
     _check_supported(cp.cones)
     cfg = get_config()
     dt, dev = cp.A.dtype, cp.A.device
@@ -647,7 +373,7 @@ def solve_batched_fused(
     b_int = cp.b @ R.T
     x, yE, yC, s, it, pres, dres = conic_pdip.solve_tile_fused(
         cp.c, b_int[:, :p], b_int[:, p:], A_int[:, :p], A_int[:, p:], (p, l, soc_dims, psd_sides),
-        max_iters=max_iters, tol=tol, reg=reg, eps=_eps(dt),
+        max_iters=max_iters, tol=tol, reg=reg, eps=jordan.eps_for(dt),
     )
     y = torch.cat([yE, yC], dim=-1) @ R
     s_full = torch.cat([s.new_zeros(s.shape[0], p), s], dim=-1) @ R

@@ -92,7 +92,7 @@ def test_every_port_module_imports_without_a_compiler():
     # the modules of the staged QP path and of the symmetric-cone path are among them
     for mod in ("api", "parameters", "qp_diff", "ops.linalg", "solvers.qp", "utils.batching", "ops.cuda.chol",
                 "cones", "conic_diff", "ops.smalleig", "ops.lsqr", "solvers.conic", "solvers.conic_ipm",
-                "ops.cuda.conic_pdip"):
+                "ops.cuda.conic_pdip", "ops.jordan"):
         assert f"diffopt_tpu_torch.{mod}" in names
     from diffopt_tpu_torch.ops.cuda import _build
 

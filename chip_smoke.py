@@ -39,10 +39,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``solve_conic`` (staged IPM) against K6, its forward rule against a central
    difference, ``ConicDiffContext``, ``lsqr`` past the LSQR threshold on the
    staged solver's condensed route, ``ParametricProgram(kind="conic")`` and an
-   exp-cone program that must raise;
-7. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``
-   and ``{"kernels": [...]}``, the card's name and power limit, and as the
-   last line ``{"ok": true, "device": {...}}``.
+   exp-cone program against its analytic solution;
+7. the nonsymmetric-cone path: the fused dual-scaling IPM (K7) against its
+   plain version (the entropy family of the exp benchmark in f32 at B = 16384
+   and in f64, the pow family and a dual_exp layout in f64: f32 as a stated
+   distribution, f64 exactly through the first 8 bodies and, to the
+   tolerance, within the plain version's own spread under a one-ulp change of
+   the data), then ``[exp]``: ``solve_conic_batched`` forward + backward of
+   ``sum(x**2)`` on the entropy family (B = 16384, k = 3, f32; launch counts,
+   converged share, f32 gradients of 512 instances against f64), and
+   ``[ns-routes]`` at small batches in f64: the staged nonsymmetric IPM
+   against K7 and on a psd + exp layout, the forward rule against a central
+   difference, ``ConicDiffContext``, the DR splitting on an equality-only
+   program and on the entropy family, the exp / pow DPi against a central
+   difference of Pi, and a padded heterogeneous exp / pow batch;
+8. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``,
+   ``exp`` and ``{"kernels": [...]}`` (K1-K7), the card's name and power
+   limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -162,7 +176,7 @@ def phase_build():
     from diffopt_tpu_torch.ops.cuda import _build
 
     t0 = time.perf_counter()
-    for name in ("chol", "conic_pdip", "ldl", "pdip"):
+    for name in ("chol", "conic_pdip", "ldl", "ns_pdip", "pdip"):
         _build.load(name)
     print(f"[build] nvcc, {time.perf_counter() - t0:.1f} s (into {_build.build_dir()})")
     for log in sorted(_build.build_dir().glob("*.nvcc.log")):
@@ -569,7 +583,7 @@ def phase_main(batch, gen):
     per_step = {k: v / steps for k, v in launches.items()}
     print(f"[main] launches over {steps} steps: {launches} (per step {per_step})")
     check(per_step == {"pdip_fused": 1, "ldl_factor": 2, "ldl_solve": 6, "chol_factor": 0, "chol_solve": 0,
-                       "conic_pdip": 0}, f"unexpected launch counts {per_step}")
+                       "conic_pdip": 0, "ns_pdip": 0}, f"unexpected launch counts {per_step}")
 
     grads = [t.grad for t in qp.tensors()]
     check(all(g is not None and g.shape == t.shape for g, t in zip(grads, qp.tensors())), "missing gradient")
@@ -626,8 +640,8 @@ def phase_main(batch, gen):
 def reset_counts():
     """Every launch counter and host-sync counter of the port to 0; returns the objects that carry them."""
     from diffopt_tpu_torch.ops import kkt
-    from diffopt_tpu_torch.ops.cuda import chol, conic_pdip, pdip
-    from diffopt_tpu_torch.solvers import conic_ipm
+    from diffopt_tpu_torch.ops.cuda import chol, conic_pdip, ns_pdip, pdip
+    from diffopt_tpu_torch.solvers import conic, conic_ipm, conic_nsipm
     from diffopt_tpu_torch.solvers import qp as qpsolver
 
     wrappers = {
@@ -637,11 +651,14 @@ def reset_counts():
         "chol_factor": chol.cholesky_batched,
         "chol_solve": chol.cholesky_solve_batched,
         "conic_pdip": conic_pdip.solve_tile_fused,
+        "ns_pdip": ns_pdip.solve_tile_fused_ns,
     }
     for w in wrappers.values():
         w.launches = 0
     qpsolver.solve_batched.host_syncs = 0
     conic_ipm.solve_batched.host_syncs = 0
+    conic_nsipm.solve_batched.host_syncs = 0
+    conic.solve_batched.host_syncs = 0
     kkt._auto_solve.host_syncs = 0
     return wrappers
 
@@ -703,7 +720,7 @@ def phase_staged(batch, gen):
     # the start factors H and S and solves four times; a body factors both and solves seven times
     # (one of them with k = p right-hand sides); the default KKT route ('auto' -> LU) launches none
     expect = {"pdip_fused": 0, "ldl_factor": 0, "ldl_solve": 0, "chol_factor": 2 + 2 * bodies, "chol_solve": 4 + 7 * bodies,
-              "conic_pdip": 0}
+              "conic_pdip": 0, "ns_pdip": 0}
     check(per_step == expect, f"staged path: launch counts per step {per_step}, expected {expect}")
     check(syncs == bodies + 1, f"staged path: {syncs} host syncs per step, expected {bodies + 1}")
 
@@ -907,7 +924,7 @@ def phase_qp100(batch, gen):
         times.append(time.perf_counter() - t0)
     launches = {k: w.launches / (STEPS + 1) for k, w in wrappers.items()}
     check(launches == {"pdip_fused": 1, "ldl_factor": 2, "ldl_solve": 6, "chol_factor": 0, "chol_solve": 0,
-                       "conic_pdip": 0}, f"qp100: unexpected launches per step {launches}")
+                       "conic_pdip": 0, "ns_pdip": 0}, f"qp100: unexpected launches per step {launches}")
     conv = float(info.converged.float().mean())
     med = sorted(times)[len(times) // 2]
     print(f"[qp100] B={B} n={n} m={m} p={p} (N={n + m + p}) f32 solve + VJP: {B / med:.1f} solves+VJPs per second (median step"
@@ -1256,7 +1273,7 @@ def phase_conic_routes(gen):
     """The other entry points and routes of the slice at small batches, f64: solve_conic (staged IPM)
     against K6's solution, the forward rule against a central difference, ConicDiffContext against the
     uncached verbs, 'lsqr' against 'lstsq' past the LSQR threshold (which also takes the staged solver's
-    condensed route, N > 128), ParametricProgram(kind='conic'), and an exp-cone program."""
+    condensed route, N > 128), ParametricProgram(kind='conic'), and an exp-cone program that now solves."""
     import torch.autograd.forward_ad as fwAD
 
     import diffopt_tpu_torch as dtt
@@ -1336,15 +1353,374 @@ def phase_conic_routes(gen):
     print(f"[conic-routes] ParametricProgram(kind='conic') on the card: d/dtheta {float(dth):.6e}, chain-rule diff {perr:.3e}")
     check(perr <= 1e-8, "ParametricProgram(kind='conic') disagrees with the chain rule")
 
-    # an exp-cone program names the slice that brings it
-    z = torch.zeros(1, 3, 1, dtype=torch.float64, device=DEVICE)
-    try:
-        dtt.solve_conic_batched(dtt.ConeProgram(z, z[..., 0], z[:, 0], dtt.ConeSpec([("exp", 3)])))
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    print(f"[conic-routes] an exp-cone program raises NotImplementedError: {raised[:100]}...")
-    check("K7" in raised, "an exp-cone program did not raise NotImplementedError naming its slice")
+    # an exp-cone program solves (the equal-weight entropy program: x_i = 1/k, t_i = (1/k) log k)
+    from diffopt_tpu_torch.utils.testing import make_entropy_batch
+
+    ent = make_entropy_batch(2, k=3, dtype=torch.float64, device=DEVICE)
+    ent = dtt.ConeProgram(ent.A, ent.b, torch.cat([ent.c[:, :3] * 0, -torch.ones_like(ent.c[:, 3:])], 1), ent.cones)
+    esol, einfo = dtt.solve_conic_batched(ent, with_info=True)
+    want = torch.tensor([1 / 3] * 3 + [math.log(3) / 3] * 3, dtype=torch.float64, device=DEVICE)
+    eerr = float((esol.x - want).abs().max())
+    print(f"[conic-routes] an exp-cone program solves: converged {bool(einfo.converged.all())}, |x - x*| {eerr:.3e}")
+    check(bool(einfo.converged.all()) and eerr <= 1e-7, "an exp-cone program did not solve to its analytic solution")
+
+
+# ---- the nonsymmetric-cone path: kernel K7, [exp], [ns-routes] ------------------------------------------
+
+EXP_K = 3  # the exp benchmark: entropy with k = 3 exp blocks, n = 6, one zero row, N = 16
+EXP_BATCH = 16384
+# K7 against its plain version. f32 at the full width: a stated distribution, as for K6. f64: the
+# dual-scaling Hessian conditions like 1/mu^2 and the searches choose their steps on grids, so after
+# about eight bodies a change of one ulp in the data moves a grid choice on about half of the instances
+# (the plain version against itself: iteration counts moved on 46% of an f64 entropy batch, iterates by
+# up to 2e-7; PERF.md, Findings). Two versions that round differently cannot agree better than that.
+# So f64 is held in two parts: (1) capped at 8 bodies with tol 0, before the steps part, the kernel and
+# its plain version compute the same thing: 99% of the instances to 1e-9, and at most 1% apart (an
+# instance whose grid choice sits on a knife's edge can flip early: 1 of the 4096 of the f64 entropy
+# batch, 2 of the 1024 of the dual_exp one); (2) run to the tolerance, both converge and the
+# kernel stays as close to the plain version as the plain version stays to itself under a one-ulp change
+# of c: median and 99% within 10 times that, the share with different iteration counts within 0.15 of
+# it, and no instance further than 1e-4 (a single instance's tail, as for K6's psd layouts).
+TOL_K7_F32 = {"median": 1e-4, "q99": 1e-2}
+TOL_K7_CAPPED = {"q99": 1e-9, "share": 0.01}
+K7_CAPPED_BODIES = 8
+TOL_K7_F64_SPREAD = {"factor": 10.0, "floor": 1e-8, "share_margin": 0.15, "max": 1e-4}
+
+
+def ns_pdip_flops(n, p, l, soc_dims, ns_blocks, iterations, dtype=torch.float32):
+    """Operations of one launch of the fused nonsymmetric IPM on a batch whose instances ran ``iterations``
+    bodies each, counted as csrc/ns_pdip.cu does the work; each log, exp and sqrt counts as one operation.
+    A body: the metrics; grad F; the per-block Hbar data (per ns block its closed-form gradient and
+    Hessian, a 3 x 3 Jacobi of 6 sweeps, 8 in f64, of 3 rotations, the floored inverse); the LDL' of K (its
+    cone block computed entry by entry); the affine probe (one solve, 9 feasibility candidates, mu_aff); the
+    predictor (two solves with the refinement residuals of the unsquared block system, 18 candidates with
+    the proximity test); the update. A solve: Hbar^-1 applied twice, the LDL' substitutions, the right-hand
+    side. A candidate: the point s + a ds, y + a dy, the interiority of every block, and (with the
+    proximity) mu and per block the proximity term, per ns block its gradient, Hessian and the scaled 3 x 3
+    Cramer solve. The centering step (a solve and 7 candidates) runs only where the predictor's step is
+    below 0.05, which the run does not report, and is not counted. Per instance: the init (grad F) and
+    three metric evaluations outside the loop."""
+    from diffopt_tpu_torch.ops.smalleig import _sweeps_for
+
+    nns = len(ns_blocks)
+    mC = l + sum(soc_dims) + 3 * nns
+    N = n + p + mC
+    sweeps = _sweeps_for(3, dtype)
+    grad_hess = 50  # one ns block's margin, gradient and Hessian (a log or an exp and a log, 45-60 operations)
+    metrics = 4 * n * (mC + p) + 14 * mC + 10 * p + 11 * n
+    grad = 2 * l + sum(5 * d + 4 for d in soc_dims) + 25 * nns
+    hbar = sum(2 * d + 4 for d in soc_dims) + nns * (grad_hess + sweeps * 3 * 70 + 6 + 81 + 18)
+    entries = l * 3 + sum(d * d * 6 for d in soc_dims) + nns * 9 * 2  # one cone-block entry of Hbar or Hbar^-1
+    factor = N**3 / 3 + N * N + entries / 2
+    apply = 2 * (l + sum(d * d for d in soc_dims) + 9 * nns) + entries
+    solve_once = 2 * apply + 2 * N * N + N + 2 * mC
+    residuals = apply + 4 * mC * n + 4 * p * n + 2 * n + p + 5 * mC
+    solve_dir = 2 * solve_once + residuals + 2 * (n + p + 2 * mC)
+    point = 4 * mC
+    interior = l + sum(2 * d + 2 for d in soc_dims) + nns * 24
+    prox = 2 * mC + 3 * l + sum(14 * d + 8 for d in soc_dims) + nns * (grad_hess + 80)
+    cand_feasible, cand_prox = point + interior, 2 * point + interior + prox
+    body = grad + hbar + factor + solve_once + 9 * cand_feasible + 5 * mC + 3 * mC + solve_dir
+    body += 18 * cand_prox + 2 * (n + p + 2 * mC)
+    its = iterations.double()
+    return float(its.sum()) * (body + metrics) + its.numel() * (grad + 3 * metrics)
+
+
+def ns_internal(cp):
+    """K7's inputs for a ConeProgram batch: rows through the static transform R."""
+    from diffopt_tpu_torch.solvers import conic_ipm
+
+    R, p, l, socs, _, ns = conic_ipm._row_transform(cp.cones, allow_ns=True)
+    R = torch.as_tensor(R, dtype=cp.A.dtype, device=cp.A.device)
+    A = torch.einsum("ij,bjk->bik", R, cp.A)
+    b = cp.b @ R.T
+    return (cp.c, b[:, :p], b[:, p:], A[:, :p], A[:, p:]), (p, l, socs, ns)
+
+
+def dual_exp_batch(B, dtype, gen):
+    """min u s.t. (u, beta, gamma) in K_exp* (the dual-exp family of the JAX package's nonsymmetric tests)
+    with one zero row fixing a second variable, so that the fused kernel takes it: beta, gamma uniform in
+    [0.5, 2]."""
+    from diffopt_tpu_torch import ConeProgram, ConeSpec
+
+    A = torch.zeros(B, 4, 2, dtype=dtype, device=DEVICE)
+    A[:, 0, 1] = 1.0
+    A[:, 1, 0] = -1.0
+    b = torch.zeros(B, 4, dtype=dtype, device=DEVICE)
+    b[:, 0] = 1.0
+    b[:, 2:] = 0.5 + 1.5 * torch.rand(B, 2, dtype=dtype, device=DEVICE, generator=gen)
+    c = torch.zeros(B, 2, dtype=dtype, device=DEVICE)
+    c[:, 0] = 1.0
+    return ConeProgram(A, b, c, ConeSpec([("zero", 1), ("dual_exp", 3)]))
+
+
+def _inst_diff(out, ref):
+    """Per-instance relative difference over x, yE, yC and s."""
+    return torch.stack([(a - b).abs().amax(-1) / (1.0 + b.abs().amax(-1))
+                        for a, b in zip(out[:4], ref[:4]) if a.shape[-1]]).amax(0).double()
+
+
+def _dist(x):
+    return tuple(float(torch.quantile(x, q)) for q in (0.5, 0.99, 1.0))
+
+
+def phase_kernels_ns(batch, gen):
+    """K7 against its plain version: the entropy family of [exp] in f32 at the full width and in f64, the
+    pow family and a dual_exp layout in f64. Returns the entry of the ``kernels`` line."""
+    from diffopt_tpu_torch.ops.cuda import ns_pdip
+    from diffopt_tpu_torch.utils.testing import make_entropy_batch, make_pow_batch
+
+    Bf = min(batch, EXP_BATCH)
+    cases = [
+        ("entropy f32", make_entropy_batch(Bf, k=EXP_K, seed=1, device=DEVICE), 5e-6),
+        ("entropy f64", make_entropy_batch(min(batch, 4096), k=EXP_K, seed=2, dtype=torch.float64, device=DEVICE), 1e-8),
+        ("pow f64", make_pow_batch(min(batch, 1024), seed=3, device=DEVICE), 1e-8),
+        ("dual_exp f64", dual_exp_batch(min(batch, 1024), torch.float64, gen), 1e-8),
+    ]
+    entry, dists = None, {}
+    for label, cp, tol in cases:
+        args, lay = ns_internal(cp)
+        B, f64 = cp.batch_size, cp.A.dtype == torch.float64
+        kw = dict(max_iters=150, tol=tol, reg=1e-11 if f64 else 1e-7, eps=1e-15 if f64 else 1e-7)
+        out = ns_pdip.solve_tile_fused_ns(*args, lay, **kw)
+        ref, plain_ms = wall_ms(lambda: ns_pdip.solve_tile_fused_ns_plain(*args, lay, **kw))
+        inst = _inst_diff(out, ref)
+        conv = lambda o: float((torch.maximum(torch.maximum(o[5], o[6]), o[7]) < 10 * tol).float().mean())
+        differ = float((out[4] != ref[4]).float().mean())
+        med, q99, worst = _dist(inst)
+        max_abs = max(float((a - b).abs().max()) for a, b in zip(out[:4], ref[:4]) if a.numel())
+        print(f"[kernels] ns_pdip {label} B={B} layout {lay} tol {tol:.0e}: per-instance relative diff median"
+              f" {med:.3e}, 99% {q99:.3e}, max {worst:.3e}; converged {conv(out):.4%} (plain {conv(ref):.4%});"
+              f" iterations mean {float(out[4].float().mean()):.2f} vs plain {float(ref[4].float().mean()):.2f},"
+              f" differ on {differ:.3%}; plain {plain_ms:.0f} ms")
+        check(all(bool(torch.isfinite(t).all()) for t in out[:4]), f"ns_pdip {label}: non-finite output")
+        check(conv(out) >= 0.99 and conv(ref) >= 0.99, f"ns_pdip {label}: converged shares {conv(out)}, {conv(ref)}")
+        dist = dict(median=med, q99=q99, max=worst, iterations_differ=differ, converged=conv(out),
+                    plain_converged=conv(ref))
+        if f64:
+            same = out[4] == ref[4]
+            dist["max_same_iterations"] = float(inst[same].max()) if bool(same.any()) else 0.0
+            # (1) the first bodies: the same computation
+            capped = dict(kw, max_iters=K7_CAPPED_BODIES, tol=0.0)
+            cap = _inst_diff(ns_pdip.solve_tile_fused_ns(*args, lay, **capped),
+                             ns_pdip.solve_tile_fused_ns_plain(*args, lay, **capped))
+            cap_share = float((cap > TOL_K7_CAPPED["q99"]).float().mean())
+            dist.update(capped_q99=float(torch.quantile(cap, 0.99)), capped_share_apart=cap_share)
+            # (2) to the tolerance: against the plain version's own spread under one ulp of c
+            c_ulp = args[0] * (1.0 + torch.finfo(args[0].dtype).eps)
+            ulp = ns_pdip.solve_tile_fused_ns_plain(c_ulp, *args[1:], lay, **kw)
+            ulp_inst = _inst_diff(ulp, ref)
+            u_med, u_q99, u_max = _dist(ulp_inst)
+            u_differ = float((ulp[4] != ref[4]).float().mean())
+            dist.update(ulp_median=u_med, ulp_q99=u_q99, ulp_max=u_max, ulp_iterations_differ=u_differ)
+            print(f"[kernels] ns_pdip {label}: capped at {K7_CAPPED_BODIES} bodies diff median {float(cap.median()):.3e},"
+                  f" 99% {dist['capped_q99']:.3e}, above {TOL_K7_CAPPED['q99']:.0e} on {cap_share:.3%}; where both took the same steps max {dist['max_same_iterations']:.3e};"
+                  f" the plain version against itself with c moved by one ulp: median {u_med:.3e}, 99% {u_q99:.3e},"
+                  f" max {u_max:.3e}, iteration counts differ on {u_differ:.3%}")
+            check(dist["capped_q99"] <= TOL_K7_CAPPED["q99"] and cap_share <= TOL_K7_CAPPED["share"],
+                  f"ns_pdip {label}: the first bodies disagree (99% {dist['capped_q99']:.3e}, apart on {cap_share:.3%})")
+            sp = TOL_K7_F64_SPREAD
+            lim = lambda u: sp["factor"] * max(u, sp["floor"])
+            check(med <= lim(u_med) and q99 <= lim(u_q99) and worst <= sp["max"],
+                  f"ns_pdip {label}: kernel and plain part further than one ulp of the data moves the plain version")
+            check(differ <= u_differ + sp["share_margin"], f"ns_pdip {label}: iteration counts differ on {differ:.3%}")
+        else:
+            check(med <= TOL_K7_F32["median"] and q99 <= TOL_K7_F32["q99"],
+                  f"ns_pdip {label} disagrees with its plain version: median {med:.3e}, 99% {q99:.3e}")
+            ms = time_ms(lambda: ns_pdip.solve_tile_fused_ns(*args, lay, **kw), reps=3)
+            n, (p, l, socs, ns) = cp.num_vars, lay
+            mC = args[2].shape[1]
+            bytes_moved = B * 4 * ((p + mC) * (n + 1) + n + (n + p + 2 * mC + 4))
+            flops = ns_pdip_flops(n, p, l, socs, ns, out[4])
+            b_ms, b_by = bound(bytes_moved, flops)
+            print(f"[kernels] ns_pdip {label} B={B}: {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}: {flops / B:.0f}"
+                  f" operations per instance; plain {plain_ms:.0f} ms)")
+            entry = dict(name="ns_pdip", route="cuda", source="diffopt_tpu_torch/csrc/ns_pdip.cu",
+                         replaces="diffopt_tpu/ops/pallas/ns_pdip.py:224", max_abs_err=max_abs, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        dists[label] = dist
+        del out, ref, cp
+        torch.cuda.empty_cache()
+    entry["agreement"] = dists
+    return {"ns_pdip": entry}
+
+
+def phase_exp(batch):
+    """The slice's main path at full width: solve_conic_batched (K7 forward, gram polish, gram VJP on
+    K4 / K5) forward + backward of sum(x**2) on the entropy family of the JAX package's exp benchmark
+    (B = 16384, k = 3, f32), a warm-up and three timed steps; launch counts, converged share, residuals,
+    and the f32 gradients of 512 instances against the same instances solved and differentiated in f64."""
+    import diffopt_tpu_torch as dtt
+    from diffopt_tpu_torch.utils.testing import make_entropy_batch
+
+    B = min(batch, EXP_BATCH)
+    cp = make_entropy_batch(B, k=EXP_K, seed=0, device=DEVICE).map(lambda t: t.requires_grad_())
+    wrappers = reset_counts()
+    (sol, info, loss), med = timed_steps(conic_step_runner(cp), STEPS)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    per_step = {k: v / (STEPS + 1) for k, v in launches.items()}
+    print(f"[exp] launches over {STEPS + 1} steps: {launches} (per step {per_step})")
+    check(per_step["ns_pdip"] == 1, f"[exp]: K7 launched {per_step['ns_pdip']} times per step, expected 1")
+    check(per_step["chol_factor"] > 0 and per_step["chol_solve"] > 0, "[exp]: the gram route launched no K4 / K5")
+    check(per_step["conic_pdip"] == 0 and per_step["pdip_fused"] == 0, "[exp]: a kernel of another path was launched")
+    grads = [t.grad for t in cp.tensors()]
+    check(all(bool(torch.isfinite(t).all()) for t in sol.tensors()), "[exp]: non-finite solution")
+    check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads), "[exp]: non-finite gradient")
+    check(sol.x.shape == (B, 2 * EXP_K) and sol.y.shape == (B, 1 + 3 * EXP_K), "[exp]: wrong shapes")
+    conv = float(info.converged.float().mean())
+    res = float(torch.maximum(info.primal_residual, info.dual_residual).max())
+    its = info.iterations.float()
+    print(f"[exp] B={B} k={EXP_K} (n = {2 * EXP_K}, N = {3 * EXP_K + 1 + 2 * EXP_K}) f32: loss {loss.item():.6e},"
+          f" converged {conv:.4%}, max relative residual {res:.3e}, iterations mean {float(its.mean()):.2f}"
+          f" max {int(its.max())}")
+    check(conv >= 0.99, f"[exp]: only {conv:.3%} of the instances converged")
+    check(res <= 1e-3, f"[exp]: relative residual {res:.3e}: an instance is far from solved")
+    sub = min(B, 512)
+    c64 = cp.map(lambda t: t.detach()[:sub].double().requires_grad_())
+    s64 = dtt.solve_conic_batched(c64)  # the f64 default tolerance, 1e-8
+    (s64.x**2).sum().backward()
+    worst = {}
+    for name, g, r in zip("Abc", grads, c64.tensors()):
+        diff = (g[:sub].double() - r.grad).abs().flatten(1).amax(1) / float(r.grad.abs().max())
+        share = float((diff > 1e-2).float().mean())
+        worst[name] = (float(diff.median()), float(diff.max()), share)
+        print(f"[exp] grad d{name} f32 against f64: per-instance relative diff median {float(diff.median()):.3e},"
+              f" 99% {float(torch.quantile(diff, 0.99)):.3e}, max {float(diff.max()):.3e}, above 1e-2 on {share:.3%}")
+        check(float(diff.median()) <= TOL_CONIC_GRAD["median"] and share <= TOL_CONIC_GRAD["share_above_1e-2"],
+              f"[exp]: f32 gradient d{name} off the f64 one")
+    return launches, dict(solves_vjps_per_s=B / med, step_ms=med * 1e3, batch=B, k=EXP_K, converged=conv,
+                          max_residual=res, mean_iterations=float(its.mean()), ns_pdip_per_step=per_step["ns_pdip"],
+                          chol_factor_per_step=per_step["chol_factor"], chol_solve_per_step=per_step["chol_solve"],
+                          grad_f32_vs_f64={k: dict(median=v[0], max=v[1], share_above_1e_2=v[2]) for k, v in worst.items()})
+
+
+def phase_ns_routes(gen):
+    """The other entry points and routes of the slice at small batches, f64: solve_conic(solver='nsipm')
+    (staged) against K7, the staged solver on a psd + exp layout, the forward rule against a central
+    difference, ConicDiffContext against the uncached verbs, the DR splitting on an equality-only program
+    and on the entropy program, the exp / pow DPi against a central difference of Pi, and a heterogeneous
+    padded exp / pow batch against per-instance solves."""
+    import torch.autograd.forward_ad as fwAD
+
+    import diffopt_tpu_torch as dtt
+    from diffopt_tpu_torch import cones, conic_diff
+    from diffopt_tpu_torch.solvers import conic_nsipm
+    from diffopt_tpu_torch.utils import batching
+    from diffopt_tpu_torch.utils.testing import make_entropy_batch
+
+    f64 = torch.float64
+    ent = make_entropy_batch(256, k=EXP_K, seed=6, dtype=f64, device=DEVICE)
+    wrappers = reset_counts()
+    staged, sinfo = dtt.solve_conic(ent, solver="nsipm", with_info=True)
+    fused, finfo = dtt.solve_conic_batched(ent, with_info=True)
+    err = (staged.x - fused.x).abs().amax(1) / (1.0 + fused.x.abs().amax(1))
+    print(f"[ns-routes] solve_conic(solver='nsipm') against K7, entropy f64 B=256: per-instance relative diff of x"
+          f" median {float(err.median()):.3e}, max {float(err.max()):.3e} (tol 1e-6: two runs that met tol 1e-8);"
+          f" converged {float(sinfo.converged.float().mean()):.2%} / {float(finfo.converged.float().mean()):.2%};"
+          f" launches {dict((k, w.launches) for k, w in wrappers.items())},"
+          f" {conic_nsipm.solve_batched.host_syncs} host syncs in the staged loop")
+    check(float(err.max()) <= 1e-6 and bool(sinfo.converged.all()) and bool(finfo.converged.all()),
+          "solve_conic (staged nsipm) and K7 disagree")
+    check(wrappers["ldl_factor"].launches > 0 and wrappers["ns_pdip"].launches == 1, "[ns-routes]: wrong kernels")
+
+    # a psd + exp layout, which only the staged solver takes: entropy plus 2 I + sum_j x_j G_j >= 0 (side 2)
+    Bp = 64
+    G = 0.3 * torch.randn(Bp, 2 * EXP_K, 2, 2, dtype=f64, device=DEVICE, generator=gen)
+    G = (G + G.transpose(-1, -2)) / 2
+    svec = lambda X: torch.stack([X[..., 0, 0], 2**0.5 * X[..., 0, 1], X[..., 1, 1]], -1)
+    base = ent.map(lambda t: t[:Bp])
+    pe = dtt.ConeProgram(torch.cat([base.A, -svec(G).transpose(1, 2)], 1),
+                         torch.cat([base.b, svec(2 * torch.eye(2, dtype=f64, device=DEVICE)).expand(Bp, 3)], 1), base.c,
+                         dtt.ConeSpec(list(base.cones.blocks) + [("psd", 3)]))
+    reset_counts()
+    psol, pinfo = dtt.solve_conic(pe, solver="nsipm", with_info=True)
+    print(f"[ns-routes] solve_conic(solver='nsipm') on entropy + psd(side 2), f64 B={Bp}: converged"
+          f" {float(pinfo.converged.float().mean()):.2%}, iterations mean {float(pinfo.iterations.float().mean()):.2f};"
+          f" K7 launches {wrappers['ns_pdip'].launches}, LDL' launches {wrappers['ldl_factor'].launches}")
+    check(bool(pinfo.converged.all()) and wrappers["ns_pdip"].launches == 0 and wrappers["ldl_factor"].launches > 0,
+          "[ns-routes]: the psd + exp layout did not take the staged solver, or did not converge")
+
+    # the forward rule against a central difference of the solution map (polished to the HSDE's precision)
+    sub = ent.map(lambda t: t[:64].clone())
+    dA, db, dc = (0.1 * torch.randn(t.shape, dtype=f64, device=DEVICE, generator=gen) for t in sub.tensors())
+    dA = dA * (sub.A != 0)  # perturb the entries the family has
+    with fwAD.dual_level():
+        dual = dtt.ConeProgram(fwAD.make_dual(sub.A, dA), fwAD.make_dual(sub.b, db), fwAD.make_dual(sub.c, dc), sub.cones)
+        jx = fwAD.unpack_dual(dtt.solve_conic(dual, mode="jvp", polish=3).x).tangent
+    eps = 1e-6
+    shift = lambda sgn: dtt.ConeProgram(sub.A + sgn * eps * dA, sub.b + sgn * eps * db, sub.c + sgn * eps * dc, sub.cones)
+    fd = (dtt.solve_conic(shift(1), polish=3).x - dtt.solve_conic(shift(-1), polish=3).x) / (2 * eps)
+    jerr = (jx - fd).abs().amax(1) / (1.0 + fd.abs().amax(1))
+    print(f"[ns-routes] solve_conic(mode='jvp') on the entropy family against a central difference (eps {eps:.0e},"
+          f" 3 polish steps), f64 B=64: per-instance relative diff median {float(jerr.median()):.3e}, max"
+          f" {float(jerr.max()):.3e} (tol: median 1e-5, max 1e-3)")
+    check(float(jerr.median()) <= 1e-5 and float(jerr.max()) <= 1e-3,
+          "the forward rule on the exp family disagrees with a central difference")
+
+    # ConicDiffContext against the uncached verbs
+    ctx = dtt.ConicDiffContext(sub)
+    seeds = [torch.randn(t.shape, dtype=f64, device=DEVICE, generator=gen) for t in ctx.sol.tensors()]
+    cr = ctx.reverse(*seeds)
+    ur = conic_diff.reverse_differentiate(sub, ctx.sol, *seeds, method="lstsq", refine_iters=2)
+    cf = ctx.forward(dtt.ConeTangent(dA, db, dc))
+    uf = conic_diff.forward_differentiate(sub, ctx.sol, dtt.ConeTangent(dA, db, dc), method="lstsq", refine_iters=2)
+    cerr = max(rel_err(a, b) for a, b in list(zip(cr.tensors(), ur.tensors())) + list(zip(cf, uf)))
+    print(f"[ns-routes] ConicDiffContext on the entropy family against the uncached verbs, f64 B=64: relative diff"
+          f" {cerr:.3e} (tol 1e-8)")
+    check(cerr <= 1e-8, "ConicDiffContext disagrees with the uncached verbs on an exp program")
+
+    # the DR splitting: an equality-only program (x* on A x = b, objective -y0'b) and the entropy program
+    Ae = torch.randn(32, 3, 5, dtype=f64, device=DEVICE, generator=gen)
+    y0 = torch.randn(32, 3, dtype=f64, device=DEVICE, generator=gen)
+    be = torch.randn(32, 3, dtype=f64, device=DEVICE, generator=gen)
+    eq = dtt.ConeProgram(Ae, be, -torch.einsum("bij,bi->bj", Ae, y0), dtt.ConeSpec([("zero", 3)]))
+    esol, einfo = dtt.solve_conic(eq, with_info=True)  # 'auto' takes DR
+    feas = float((torch.einsum("bij,bj->bi", Ae, esol.x) - be).abs().max())
+    obj = float(((eq.c * esol.x).sum(-1) + (y0 * be).sum(-1)).abs().max())
+    dsol, dinfo = dtt.solve_conic(sub, solver="dr", with_info=True)
+    derr = (dsol.x - fused.x[:64]).abs().amax(1) / (1.0 + fused.x[:64].abs().amax(1))
+    print(f"[ns-routes] DR: equality-only f64 B=32 converged {float(einfo.converged.float().mean()):.2%} in"
+          f" {float(einfo.iterations.float().mean()):.0f} iterations, |A x - b| {feas:.3e}, objective off by {obj:.3e};"
+          f" entropy f64 B=64 converged {float(dinfo.converged.float().mean()):.2%} in"
+          f" {float(dinfo.iterations.float().mean()):.0f} iterations, x against K7 max {float(derr.max()):.3e} (tol 1e-6)")
+    check(bool(einfo.converged.all()) and feas <= 1e-8 and obj <= 1e-8, "[ns-routes]: DR on the equality-only program")
+    check(bool(dinfo.converged.all()) and float(derr.max()) <= 1e-6, "[ns-routes]: DR and the nonsymmetric IPM disagree")
+
+    # DPi of the exp / pow kinds against a central difference of Pi
+    for kind, a in (("exp", None), ("dual_exp", None), ("pow", 0.3), ("dual_pow", 0.6)):
+        spec = cones.ConeSpec([(kind, 3) if a is None else (kind, 3, a)])
+        v = 2.0 * torch.randn(4096, 3, dtype=f64, device=DEVICE, generator=gen)
+        dv = torch.randn(4096, 3, dtype=f64, device=DEVICE, generator=gen)
+        h = 1e-6
+        fdp = (cones.pi(spec, v + h * dv) - cones.pi(spec, v - h * dv)) / (2 * h)
+        perr = (cones.dpi_apply(spec, v, dv) - fdp).abs().amax(1) / (1.0 + fdp.abs().amax(1))
+        print(f"[ns-routes] DPi {kind} against a central difference of Pi (h {h:.0e}), f64 4096 points: median"
+              f" {float(perr.median()):.3e}, 99% {float(torch.quantile(perr, 0.99)):.3e} (tol: median 1e-7, 99% 1e-4;"
+              " the points near a region's edge see the kink)")
+        check(float(perr.median()) <= 1e-7 and float(torch.quantile(perr, 0.99)) <= 1e-4, f"DPi {kind} disagrees")
+
+    # a heterogeneous batch: entropy instances, and the same with an appended pow block, padded to one spec
+    one = make_entropy_batch(16, k=EXP_K, seed=8, dtype=f64, device=DEVICE)
+    insts = []
+    for i in range(16):
+        A, b, c = (t[i] for t in one.tensors())
+        if i % 2:
+            insts.append(dtt.ConeProgram(torch.cat([A, torch.zeros(3, A.shape[1], dtype=f64, device=DEVICE)]),
+                                         torch.cat([b, torch.tensor([1.0, 1.0, 0.0], dtype=f64, device=DEVICE)]), c,
+                                         dtt.ConeSpec(list(one.cones.blocks) + [("pow", 3, 0.3)])))
+        else:
+            insts.append(dtt.ConeProgram(A, b, c, one.cones))
+    padded, specs = batching.pad_and_stack_cones(insts)
+    reset_counts()
+    hsol, hinfo = dtt.solve_conic_batched(padded, with_info=True)
+    parts = batching.unpad_cone_solution(hsol, specs, padded.cones)
+    herr = max(float((part.x - dtt.solve_conic_batched(ci.map(lambda t: t[None])).x[0]).abs().max())
+               for part, ci in zip(parts, insts))
+    print(f"[ns-routes] padded exp/pow batch of 16 ({padded.cones.blocks[-1]} appended to half) against per-instance"
+          f" solves: max |x diff| {herr:.3e} (tol 1e-6), converged {float(hinfo.converged.float().mean()):.2%},"
+          f" K7 launches {wrappers['ns_pdip'].launches}")
+    check(herr <= 1e-6 and bool(hinfo.converged.all()) and wrappers["ns_pdip"].launches == 17,
+          "[ns-routes]: the padded exp/pow batch disagrees with per-instance solves")
 
 
 def main(argv=None):
@@ -1370,6 +1746,7 @@ def main(argv=None):
     entries = phase_kernels(args.batch, gen)
     entries.update(phase_kernels_chol(args.batch, gen))
     entries.update(phase_kernels_conic(args.batch, gen))
+    entries.update(phase_kernels_ns(args.batch, gen))
     gram34 = entries.pop("gram34")
     phase_k1_mu_zero(gen)
     launches, rate, step_s = phase_main(args.batch, gen)
@@ -1379,11 +1756,13 @@ def main(argv=None):
     conic_launches, conic = phase_conic(args.batch)
     sdp = phase_sdp(args.batch)
     phase_conic_routes(gen)
+    exp_launches, exp = phase_exp(args.batch)
+    phase_ns_routes(gen)
     # each kernel's count is read from the run of its own path: K1-K3 the QP main path's, K4 / K5 the staged
-    # QP path's, K6 the conic path's
+    # QP path's, K6 the conic path's, K7 the exp path's
+    own = {"conic_pdip": conic_launches, "ns_pdip": exp_launches}
     for name, e in entries.items():
-        e["launches"] = (conic_launches if name == "conic_pdip" else staged_launches if name.startswith("chol_")
-                         else launches)[name]
+        e["launches"] = own.get(name, staged_launches if name.startswith("chol_") else launches)[name]
         check(e["launches"] > 0, f"{name} was not launched on its path")
     print(
         f"[main] {rate:.1f} QP solves+VJPs per second (median step {step_s * 1e3:.2f} ms, B = {args.batch}) on {card}"
@@ -1402,6 +1781,9 @@ def main(argv=None):
     print(json.dumps({"qp100": {**qp100, "card": card}}))
     print(json.dumps({"conic": {**conic, "gram_route_kernels": gram34, "card": card}}))
     print(json.dumps({"sdp": sdp, "card": card}))
+    print(f"[exp] {exp['solves_vjps_per_s']:.1f} entropy solves+VJPs per second (median step {exp['step_ms']:.2f} ms,"
+          f" B = {exp['batch']}) on {card}")
+    print(json.dumps({"exp": {**exp, "ns_pdip_agreement": entries["ns_pdip"].pop("agreement"), "card": card}}))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,12 @@ on the batched Cholesky kernels, reverse and forward rules, the
 and the symmetric-cone path — ``solve_conic_batched`` (the fused NT-scaled
 IPM kernel, ``gram`` polish and VJP), ``solve_conic`` (staged conic IPM,
 reverse and forward rules), the cones and their projections, ``conic_diff``,
-``ConicDiffContext``, ``ParametricProgram(kind="conic")`` and conic padding.
-The exp/pow cones, the DR splitting and the NLP path come with later slices.
+``ConicDiffContext``, ``ParametricProgram(kind="conic")`` and conic padding;
+and the nonsymmetric-cone path — exp / dual_exp / pow / dual_pow blocks in
+every conic verb, the fused dual-scaling IPM kernel behind
+``solve_conic_batched``, the staged nonsymmetric IPM and the DR splitting
+behind ``solve_conic(solver="nsipm"|"dr")``. The NLP path, the bridges and
+the multi-device modules come with later slices.
 """
 
 from .ir import ConeProgram, ConeSolution, ConeTangent, QPSolution, QPTangent, QuadProgram

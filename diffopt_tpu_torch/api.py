@@ -31,7 +31,6 @@ from . import cones as _cones
 from .ir import ConeProgram, ConeSolution, ConeTangent, QPSolution, QPTangent, QuadProgram
 from .ops import kkt
 from .ops.kkt import KKTSplit
-from .solvers import conic_ipm
 from .solvers import qp as qpsolver
 from .utils.config import get_config
 from .utils.precision import full_precision, residual_dtype
@@ -158,8 +157,9 @@ class ConicDiffContext:
     """Conic analogue of :class:`QPDiffContext`: solve once, cache the
     residual-map factorization, differentiate repeatedly.
 
-    ``ctx = ConicDiffContext(cp)`` solves with the staged IPM (``solver``
-    'auto' or 'ipm'; ``solver_kwargs`` go to it), Newton-polishes the point
+    ``ctx = ConicDiffContext(cp)`` solves with the staged solver that
+    ``solver`` names ('auto' as :func:`solve_conic` resolves it, or 'ipm',
+    'nsipm', 'dr'; ``solver_kwargs`` go to it), Newton-polishes the point
     (``polish`` steps, dtype-aware default), then caches BOTH directions'
     normal-equation factors — LU of the gram pair ``M'M`` and ``MM'`` with a
     scale-relative ridge (``torch.linalg.lu_factor_ex``, a library LU as in
@@ -187,13 +187,10 @@ class ConicDiffContext:
         self._cp = cp
         t0 = time.perf_counter()
         if sol is None:
-            if solver in ("nsipm", "dr"):
-                from .solve import _CONIC_WAITING
+            # the dispatch of solve_conic(solver='auto'); solver_kwargs go to whichever solver runs
+            from .solve import conic_solver_fn, resolve_conic_solver
 
-                raise NotImplementedError(_CONIC_WAITING.format(solver))
-            if solver not in ("auto", "ipm"):
-                raise ValueError(f"solver must be 'auto', 'ipm', 'nsipm' or 'dr', got {solver!r}")
-            sol, info = conic_ipm.solve_batched(cp, **(solver_kwargs or {}))
+            sol, info = conic_solver_fn(resolve_conic_solver(solver, cp.cones), **(solver_kwargs or {}))(cp)
             self.solve_info = _drop(info) if self._single else info
             if check and not bool(info.converged.all()):
                 raise NotSolvedError(

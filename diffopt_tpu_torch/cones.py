@@ -1,4 +1,4 @@
-"""Cone specifications and projection calculus (the symmetric cones).
+"""Cone specifications and projection calculus.
 
 Counterpart of ``diffopt_tpu/cones.py``. A :class:`ConeSpec` is the static
 row layout of the cone K; the projections Pi and their derivatives DPi act on
@@ -6,7 +6,7 @@ the **dual cone** of each constraint set, as the conic residual map uses
 ``v = y - s`` projected onto K*. Every function is batch-first: ``v`` is
 ``(..., m)`` with the blocks along the last dimension.
 
-Supported here (MOI set -> kind):
+Supported (MOI set -> kind):
 
 * ``zero``    — Zeros;        dual = Reals:  Pi(v) = v,       DPi = I
 * ``nonneg``  — Nonnegatives; dual = Nonneg: Pi = max(v, 0),  DPi = diag(v >= 0)
@@ -14,11 +14,18 @@ Supported here (MOI set -> kind):
 * ``soc``     — SecondOrderCone (self-dual): closed-form 2x2 block formula
 * ``rsoc``    — RotatedSecondOrderCone (self-dual): orthogonal rotation of soc
 * ``psd``     — PSD cone in **svec** coordinates (self-dual): eigh-based
+* ``exp`` / ``dual_exp`` — ExponentialCone and its dual (dim 3): Newton on
+  the projection's optimality conditions (Friberg 2021), 60 bisection-guarded
+  steps on the static bracket [-30, 30]; the dual side by Moreau's identity
+* ``pow`` / ``dual_pow`` — PowerCone(alpha) and its dual (dim 3): Newton in
+  the radius (Hien 2015), the dual side by Moreau's identity
 
-``ConeSpec`` accepts ``exp``, ``dual_exp``, ``pow`` and ``dual_pow`` blocks as
-metadata, as the JAX class does; their projections come with the slice of
-the port that brings the nonsymmetric cones (kernel K7), and until then every
-function below raises ``NotImplementedError`` for them.
+DPi of the four 3-dim kinds is the closed-form implicit derivative of the
+projection's KKT system at its solution (Hien 2015, Thm 4.2), built as a
+dense ``(..., 3, 3)`` block: never a derivative through the Newton loop. The
+exp blocks' DPi is not symmetric, so :func:`dpi_rmatvec` applies its
+transpose. Autograd reaches a projection through a
+``torch.autograd.Function`` whose ``backward`` and ``jvp`` use that block.
 
 PSD convention: rows are the *scaled* triangle (svec) — upper triangle,
 column-by-column, off-diagonal entries multiplied by sqrt(2) — so the
@@ -42,13 +49,6 @@ _KINDS = (
     "pow", "dual_pow",
 )
 _NONSYMMETRIC = ("exp", "dual_exp", "pow", "dual_pow")
-
-
-def _nonsymmetric(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"cone kind {kind!r}: the exp/pow cones come with the slice of the port that brings "
-        "the nonsymmetric interior-point method and its fused kernel (K7, ops/pallas/ns_pdip.py)"
-    )
 
 
 class ConeSpec:
@@ -289,6 +289,244 @@ def _dpi_psd_tri_dense(v: Tensor) -> Tensor:
     return cols.transpose(-1, -2)
 
 
+# --- exponential cone -----------------------------------------------------------
+# K_exp = cl{(x,y,z): y>0, y exp(x/y) <= z}; its dual K_exp* = cl{(u,v,w): u<0, -u exp(v/u) <= e w}.
+# Pi_{K*}(v) = v + Pi_K(-v) (Moreau).
+
+
+def _exp_regions(v0: Tensor):
+    """(in_cone, in_polar, special) of the exp-cone projection at ``v0 (..., 3)``."""
+    r, s, t = v0.unbind(-1)
+    one = torch.ones_like(s)
+    in_cone = ((s > 0) & (s * torch.exp(r / torch.where(s > 0, s, one)) <= t)) | (
+        (r <= 0) & (s.abs() <= 1e-300) & (t >= 0)
+    )
+    u, w = -r, -t
+    in_polar = ((u > 0) & (u * torch.exp(-s / torch.where(u > 0, u, one)) <= math.e * w)) | (
+        (u <= 0) & (-s <= 0) & (w >= 0)
+    )
+    special = (r <= 0) & (s <= 0)
+    return in_cone, in_polar, special
+
+
+def _proj_exp_value(v0: Tensor) -> Tensor:
+    """Projection of ``v0 (..., 3)`` onto the primal exponential cone: the point itself inside it, 0 in
+    the polar cone, (r, 0, max(t, 0)) where r, s <= 0, else the boundary point from 60 bisection-guarded
+    Newton steps in rho on the static bracket [-30, 30]."""
+    r, s, t = v0.unbind(-1)
+    in_cone, in_polar, special = _exp_regions(v0)
+    lo = torch.full_like(r, -30.0)
+    hi = torch.full_like(r, 30.0)
+    rho = 0.5 * (lo + hi)
+    one = torch.ones_like(r)
+    for _ in range(60):
+        erho, emrho = torch.exp(rho), torch.exp(-rho)
+        f = ((rho - 1) * r + s) * erho - (r - rho * s) * emrho - (rho * (rho - 1) + 1) * t
+        df = (rho * r + s) * erho + (r - (rho - 1) * s) * emrho - (2 * rho - 1) * t
+        neg = f < 0
+        lo = torch.where(neg, rho, lo)
+        hi = torch.where(neg, hi, rho)
+        newton = rho - f / torch.where(df.abs() > 1e-30, df, one)
+        ok = (newton > lo) & (newton < hi)
+        rho = torch.where(ok, newton, 0.5 * (lo + hi))
+    vp = torch.clamp((rho - 1) * r + s, min=1e-300) / (rho * (rho - 1) + 1)
+    gen = torch.stack([rho * vp, vp, vp * torch.exp(rho)], dim=-1)
+    heur = torch.stack([r, torch.zeros_like(r), torch.clamp(t, min=0.0)], dim=-1)
+    out = torch.where(special[..., None], heur, gen)
+    out = torch.where(in_polar[..., None], torch.zeros_like(out), out)
+    return torch.where(in_cone[..., None], v0, out)
+
+
+def _exp_jvp(v0: Tensor, p: Tensor, dv: Tensor) -> Tensor:
+    """The implicit derivative of the exp-cone projection applied to ``dv``: on the boundary, the KKT
+    system of the projection, [[I + mu H, grad g], [grad g', 0]] [dp; dmu] = [dv; 0] with the rank-1 H of
+    g(p) = y e^(x/y) - z inverted by Sherman-Morrison, in the scale-invariant form of the JAX package
+    (unit khat ~ (y, -x), sigma = q / (1 + q) through 1/q, unit gradient ~ (y, y - x, -y^2/z)); I inside
+    the cone, 0 in the polar cone and at the corner p ~ 0, diag(1, 0, [t > 0]) where r, s <= 0."""
+    dt = v0.dtype
+    r, s, t = v0.unbind(-1)
+    in_cone, in_polar, special = _exp_regions(v0)
+    x = p[..., 0]
+    y = torch.clamp(p[..., 1], min=1e-30)
+    z = torch.clamp(p[..., 2], min=1e-30)
+    mu = torch.clamp(p[..., 2] - t, min=0.0)
+    hyp = torch.clamp(torch.sqrt(x * x + y * y), min=1e-30)
+    k0, k1 = y / hyp, -x / hyp
+    invq = (y / hyp) ** 2 * (y * y) / torch.clamp(mu * z, min=torch.finfo(dt).tiny)
+    sigma = 1.0 / (1.0 + invq)
+    fz = lambda a: torch.where(torch.isfinite(a), a, torch.zeros_like(a))
+
+    def ainv(b):
+        kb = k0 * b[..., 0] + k1 * b[..., 1]
+        return torch.stack([b[..., 0] - sigma * kb * k0, b[..., 1] - sigma * kb * k1, b[..., 2]], dim=-1)
+
+    gbar = torch.stack([y, y - x, -(y * y) / z], dim=-1)
+    ghat = fz(gbar / torch.linalg.vector_norm(gbar, dim=-1, keepdim=True))
+    w_s = fz(ainv(ghat))
+    denom = (ghat * w_s).sum(-1)
+    coefv = fz(ghat / torch.clamp(denom, min=1e-30)[..., None])
+    u_s = ainv(dv)
+    dp_gen = u_s - (coefv * u_s).sum(-1, keepdim=True) * w_s
+    zero = torch.zeros_like(dv[..., 0])
+    dp_special = torch.stack([dv[..., 0], zero, torch.where(t > 0, dv[..., 2], zero)], dim=-1)
+    at_zero = p.abs().sum(-1) <= 1e-12 * (1.0 + v0.abs().sum(-1))
+    dp = torch.where(special[..., None], dp_special, dp_gen)
+    dp = torch.where((in_polar | at_zero)[..., None], torch.zeros_like(dp), dp)
+    return torch.where(in_cone[..., None], dv, dp)
+
+
+# --- power cone --------------------------------------------------------------------
+# K_pow(a) = cl{(x,y,z): x^a y^(1-a) >= |z|, x,y >= 0}; its dual
+# K_pow(a)* = cl{(u,v,w): (u/a)^a (v/(1-a))^(1-a) >= |w|, u,v >= 0}. Pi_{K*}(v) = v + Pi_K(-v).
+
+
+def _pow_val(x: Tensor, y: Tensor, a: float) -> Tensor:
+    return torch.clamp(x, min=0.0) ** a * torch.clamp(y, min=0.0) ** (1 - a)
+
+
+def _pow_regions(v0: Tensor, a: float):
+    x0, y0, z0 = v0.unbind(-1)
+    zh = z0.abs()
+    in_cone = (x0 >= 0) & (y0 >= 0) & (_pow_val(x0, y0, a) >= zh)
+    in_polar = (x0 <= 0) & (y0 <= 0) & (_pow_val(-x0 / a, -y0 / (1 - a), a) >= zh)
+    return in_cone, in_polar
+
+
+def _proj_pow_value(v0: Tensor, a: float) -> Tensor:
+    """Projection onto the primal power cone (Hien 2015, Thm 3.1): (x(r), y(r), sign(z0) r) with r the
+    root in (0, |z0|) of x(r)^a y(r)^(1-a) - r, found by 60 bisection-guarded Newton steps."""
+    x0, y0, z0 = v0.unbind(-1)
+    in_cone, in_polar = _pow_regions(v0, a)
+    zs = torch.clamp(z0.abs(), min=1e-12)
+    qx = lambda r: x0 * x0 + 4 * a * r * (zs - r)
+    qy = lambda r: y0 * y0 + 4 * (1 - a) * r * (zs - r)
+    xr = lambda r: 0.5 * (x0 + torch.sqrt(qx(r)))
+    yr = lambda r: 0.5 * (y0 + torch.sqrt(qy(r)))
+    one = torch.ones_like(zs)
+    lo, hi, r = torch.zeros_like(zs), zs, 0.5 * zs
+    for _ in range(60):
+        X, Y = xr(r), yr(r)
+        Xs, Ys = torch.clamp(X, min=1e-300), torch.clamp(Y, min=1e-300)
+        phi = torch.exp(a * torch.log(Xs) + (1 - a) * torch.log(Ys))
+        f = phi - r
+        pos = f >= 0
+        lo = torch.where(pos, r, lo)
+        hi = torch.where(pos, hi, r)
+        # d/dr of phi - r: phi (a X'/X + (1 - a) Y'/Y) - 1, the clamps' derivative 0 below their floor
+        dX = torch.where(X > 1e-300, (a * (zs - r) - a * r) / torch.sqrt(qx(r)) / Xs, torch.zeros_like(X))
+        dY = torch.where(Y > 1e-300, ((1 - a) * (zs - r) - (1 - a) * r) / torch.sqrt(qy(r)) / Ys, torch.zeros_like(Y))
+        df = phi * (a * dX + (1 - a) * dY) - 1.0
+        newton = r - f / torch.where(df.abs() > 1e-30, df, one)
+        ok = (newton > lo) & (newton < hi)
+        r = torch.where(ok, newton, 0.5 * (lo + hi))
+    gen = torch.stack([xr(r), yr(r), torch.sign(z0) * r], dim=-1)
+    out = torch.where(in_polar[..., None], torch.zeros_like(gen), gen)
+    return torch.where(in_cone[..., None], v0, out)
+
+
+def _pow_jvp(v0: Tensor, p: Tensor, dv: Tensor, a: float) -> Tensor:
+    """The implicit derivative of the power-cone projection applied to ``dv`` (the KKT system of the
+    projection with g(p) = |z| - x^a y^(1-a), whose Hessian has zero z row and column: a 2x2 Cramer solve
+    and the Schur complement for dmu); I inside the cone, 0 in the polar cone."""
+    dt = v0.dtype
+    z0 = v0[..., 2]
+    in_cone, in_polar = _pow_regions(v0, a)
+    x, y = torch.clamp(p[..., 0], min=1e-30), torch.clamp(p[..., 1], min=1e-30)
+    mu = torch.clamp(z0.abs() - p[..., 2].abs(), min=0.0)
+    sig = torch.where(z0 >= 0, torch.ones_like(z0), -torch.ones_like(z0))
+    phi = torch.exp(a * torch.log(x) + (1 - a) * torch.log(y))
+    g = torch.stack([-a * phi / x, -(1 - a) * phi / y, sig], dim=-1)
+    hxx = -a * (a - 1) * phi / (x * x)
+    hxy = -a * (1 - a) * phi / (x * y)
+    hyy = -(1 - a) * (-a) * phi / (y * y)
+    a00, a01, a11 = 1.0 + mu * hxx, mu * hxy, 1.0 + mu * hyy
+    tiny = torch.finfo(dt).tiny
+    fz = lambda t: torch.where(torch.isfinite(t), t, torch.zeros_like(t))
+    det2 = a00 * a11 - a01 * a01
+    safe2 = torch.where(det2.abs() > tiny, det2, torch.ones_like(det2))
+    m00, m01, m11 = fz(a11 / safe2), fz(-a01 / safe2), fz(a00 / safe2)
+
+    def asolve(b):
+        return torch.stack([m00 * b[..., 0] + m01 * b[..., 1], m01 * b[..., 0] + m11 * b[..., 1], b[..., 2]], dim=-1)
+
+    gf = fz(g)
+    w = fz(asolve(gf))
+    denom = (gf * w).sum(-1)
+    coef = fz(gf / torch.where(denom.abs() > tiny, denom, torch.ones_like(denom))[..., None])
+    u = asolve(dv)
+    dp_gen = u - (coef * u).sum(-1, keepdim=True) * w
+    dp = torch.where(in_polar[..., None], torch.zeros_like(dp_gen), dp_gen)
+    return torch.where(in_cone[..., None], dv, dp)
+
+
+def _ns_primal(kind: str) -> str:
+    """The primal cone whose projection gives Pi of a ``kind`` block: exp and pow blocks project onto
+    their dual cone (Moreau), dual_exp and dual_pow onto the primal one."""
+    return "exp" if kind in ("exp", "dual_exp") else "pow"
+
+
+def _ns_value(kind: str, alpha, v: Tensor) -> Tensor:
+    """Pi of one 3-dim block (no derivative)."""
+    proj = _proj_exp_value if _ns_primal(kind) == "exp" else (lambda u: _proj_pow_value(u, float(alpha)))
+    return v + proj(-v) if kind in ("exp", "pow") else proj(v)
+
+
+def _ns_jac(kind: str, alpha, v: Tensor) -> Tensor:
+    """Dense DPi ``(..., 3, 3)`` of one 3-dim block: the implicit derivative applied to the three
+    basis vectors (columns); I - D(-v) on the Moreau side."""
+    dual = kind in ("exp", "pow")
+    u = -v if dual else v
+    if _ns_primal(kind) == "exp":
+        p = _proj_exp_value(u)
+        jvp = _exp_jvp
+    else:
+        p = _proj_pow_value(u, float(alpha))
+        jvp = lambda v0, pp, dv: _pow_jvp(v0, pp, dv, float(alpha))
+    eye = torch.eye(3, dtype=v.dtype, device=v.device).expand(v.shape[:-1] + (3, 3))
+    cols = jvp(u[..., None, :], p[..., None, :], eye)  # (..., j, i): the image of e_j in row j
+    D = cols.transpose(-1, -2)
+    return eye - D if dual else D
+
+
+class _NsProjection(torch.autograd.Function):
+    """Pi of one 3-dim block with the implicit derivative as its AD rules (``backward``: DPi' g,
+    ``jvp``: DPi dv), computed from the saved point only when a derivative is asked for."""
+
+    @staticmethod
+    def forward(ctx, v, kind, alpha):
+        ctx.kind, ctx.alpha = kind, alpha
+        ctx.save_for_backward(v)
+        ctx.save_for_forward(v)
+        return _ns_value(kind, alpha, v.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        D = _ns_jac(ctx.kind, ctx.alpha, v.detach())
+        return (D.transpose(-1, -2) @ g[..., None])[..., 0], None, None
+
+    @staticmethod
+    def jvp(ctx, dv, *_):
+        (v,) = ctx.saved_tensors
+        return (_ns_jac(ctx.kind, ctx.alpha, v.detach()) @ dv[..., None])[..., 0]
+
+
+def _ns_grouped(cones: "ConeSpec", v: Tensor, fn) -> dict:
+    """``fn(kind, alpha, blocks)`` once per (kind, alpha), on all the spec's blocks of it stacked along a new
+    axis ``(..., g, 3)`` (one Newton loop for them all); returns {offset: fn's value for that block}."""
+    groups = {}
+    for kind, off, _, prm in cones.offsets_params():
+        if kind in _NONSYMMETRIC:
+            groups.setdefault((kind, prm), []).append(off)
+    out = {}
+    for (kind, prm), offs in groups.items():
+        blocks = torch.stack([v[..., o:o + 3] for o in offs], dim=-2)
+        res = fn(kind, prm, blocks)
+        for i, o in enumerate(offs):
+            out[o] = res.select(blocks.dim() - 2, i)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Public API over a full ConeSpec
 # ---------------------------------------------------------------------------
@@ -297,7 +535,8 @@ def _dpi_psd_tri_dense(v: Tensor) -> Tensor:
 def pi(cones: ConeSpec, v: Tensor) -> Tensor:
     """Project ``v (..., m)`` onto the product of dual cones."""
     outs = []
-    for kind, off, d, _ in cones.offsets_params():
+    ns = _ns_grouped(cones, v, lambda kind, alpha, blocks: _NsProjection.apply(blocks, kind, alpha))
+    for kind, off, d, prm in cones.offsets_params():
         blk = v[..., off : off + d]
         if kind == "zero":
             outs.append(blk)
@@ -312,7 +551,7 @@ def pi(cones: ConeSpec, v: Tensor) -> Tensor:
         elif kind == "psd":
             outs.append(_pi_psd_tri(blk))
         else:
-            raise _nonsymmetric(kind)
+            outs.append(ns[off])
     return torch.cat(outs, dim=-1) if outs else v[..., :0]
 
 
@@ -320,11 +559,16 @@ def _masked(mask: Tensor, db: Tensor) -> Tensor:
     return torch.where(mask, db, torch.zeros_like(db))
 
 
-def dpi_apply(cones: ConeSpec, v: Tensor, dv: Tensor) -> Tensor:
-    """Apply the block-diagonal derivative ``DPi(v) @ dv`` without
-    materializing the matrix."""
+def _matvec(D: Tensor, u: Tensor) -> Tensor:
+    return (D @ u[..., None])[..., 0]
+
+
+def dpi_apply(cones: ConeSpec, v: Tensor, dv: Tensor, transpose: bool = False) -> Tensor:
+    """Apply the block-diagonal derivative ``DPi(v) @ dv`` (``transpose``: ``DPi(v)' @ dv``) without
+    materializing the whole matrix."""
     outs = []
-    for kind, off, d, _ in cones.offsets_params():
+    jac = _ns_grouped(cones, v, _ns_jac)
+    for kind, off, d, prm in cones.offsets_params():
         blk = v[..., off : off + d]
         dblk = dv[..., off : off + d]
         if kind == "zero":
@@ -340,24 +584,26 @@ def dpi_apply(cones: ConeSpec, v: Tensor, dv: Tensor) -> Tensor:
         elif kind == "psd":
             outs.append(_dpi_psd_tri_apply(blk, dblk))
         else:
-            raise _nonsymmetric(kind)
+            D = jac[off]
+            outs.append(_matvec(D.transpose(-1, -2) if transpose else D, dblk))
     return torch.cat(outs, dim=-1) if outs else dv[..., :0]
 
 
 def dpi_rmatvec(cones: ConeSpec, v: Tensor, dv: Tensor) -> Tensor:
-    """Apply ``DPi(v)' @ dv``: every symmetric-cone DPi block is symmetric."""
-    return dpi_apply(cones, v, dv)
+    """Apply ``DPi(v)' @ dv``: the transpose of the exp / pow blocks, the others are symmetric."""
+    return dpi_apply(cones, v, dv, transpose=True)
 
 
 def dpi_operator(cones: ConeSpec, v: Tensor):
     """Prepared ``(apply, rapply)`` closures for ``DPi(v)`` / ``DPi(v)'``.
 
     The per-block factorizations (the PSD eigendecomposition, the SOC/RSOC
-    dense blocks) are computed ONCE here and closed over — the shape the
+    dense blocks, the exp/pow 3x3 blocks) are computed ONCE here and closed over — the shape the
     matrix-free LSQR path needs, which applies DPi hundreds of times at a
     fixed ``v``. ``v`` is ``(B, m)``; the closures take ``(B, m)``."""
-    makers = []  # (offset, dim, apply_fn)
-    for kind, off, d, _ in cones.offsets_params():
+    makers = []  # (offset, dim, apply_fn, transposed apply_fn)
+    jac = _ns_grouped(cones, v, _ns_jac)
+    for kind, off, d, prm in cones.offsets_params():
         blk = v[..., off : off + d]
         if kind == "zero":
             f = lambda db: db
@@ -369,21 +615,30 @@ def dpi_operator(cones: ConeSpec, v: Tensor):
         elif kind == "psd":
             f = (lambda eigs: lambda db: _dpi_psd_apply_eigs(*eigs, db))(_psd_eigs(blk))
         else:
-            raise _nonsymmetric(kind)
-        makers.append((off, d, f))
+            D = jac[off]
+            Dt = D.transpose(-1, -2)
+            f = (lambda D: lambda db: _matvec(D, db))(D)
+            makers.append((off, d, f, (lambda Dt: lambda db: _matvec(Dt, db))(Dt)))
+            continue
+        makers.append((off, d, f, f))  # a symmetric block
 
     def apply(dv):
-        outs = [f(dv[..., off : off + d]) for off, d, f in makers]
+        outs = [f(dv[..., off : off + d]) for off, d, f, _ in makers]
         return torch.cat(outs, dim=-1) if outs else dv[..., :0]
 
-    return apply, apply  # every block is symmetric
+    def rapply(dv):
+        outs = [r(dv[..., off : off + d]) for off, d, _, r in makers]
+        return torch.cat(outs, dim=-1) if outs else dv[..., :0]
+
+    return apply, rapply
 
 
 def dpi_dense(cones: ConeSpec, v: Tensor) -> Tensor:
     """Materialized block-diagonal ``DPi(v)`` ``(..., m, m)``."""
     m = cones.total_dim
     out = torch.zeros(v.shape[:-1] + (m, m), dtype=v.dtype, device=v.device)
-    for kind, off, d, _ in cones.offsets_params():
+    jac = _ns_grouped(cones, v, _ns_jac)
+    for kind, off, d, prm in cones.offsets_params():
         blk = v[..., off : off + d]
         if kind == "zero":
             B = torch.eye(d, dtype=v.dtype, device=v.device).expand(v.shape[:-1] + (d, d))
@@ -398,7 +653,7 @@ def dpi_dense(cones: ConeSpec, v: Tensor) -> Tensor:
         elif kind == "psd":
             B = _dpi_psd_tri_dense(blk)
         else:
-            raise _nonsymmetric(kind)
+            B = jac[off]
         out[..., off : off + d, off : off + d] = B
     return out
 

@@ -20,7 +20,8 @@ from . import conic_diff
 from .ir import ConeProgram, ConeSolution, ConeTangent, QPSolution, QPTangent, QuadProgram
 from .ops import kkt
 from .ops.cuda import pdip
-from .solvers import conic_ipm
+from .solvers import conic as conicsolver
+from .solvers import conic_ipm, conic_nsipm
 from .solvers import qp as qpsolver
 from .solvers.conic import ConicSolveInfo
 from .solvers.qp import QPSolveInfo
@@ -199,28 +200,49 @@ def solve_qp_batched(
 # Conic programs
 # ---------------------------------------------------------------------------
 
-_CONIC_WAITING = (
-    "solver={!r}: the nonsymmetric IPM and the DR splitting come with the slice of the port that brings "
-    "kernel K7 (solvers/conic_nsipm.py, solvers/conic.py, ops/pallas/ns_pdip.py)"
-)
+def resolve_conic_solver(solver: str, cones) -> str:
+    """``solver='auto'`` -> 'ipm' for symmetric-cone programs with a non-zero block, 'nsipm' for programs
+    with exp/pow blocks, 'dr' for equality-only ones; 'ipm' / 'nsipm' / 'dr' force one."""
+    if solver not in ("auto", "ipm", "nsipm", "dr"):
+        raise ValueError(f"solver must be 'auto', 'ipm', 'nsipm' or 'dr', got {solver!r}")
+    if solver != "auto":
+        return solver
+    nonzero = any(k != "zero" for k, _, _ in cones.blocks)
+    if conic_ipm.supports(cones) and nonzero:
+        return "ipm"
+    if conic_nsipm.supports(cones) and nonzero:
+        return "nsipm"
+    return "dr"
+
+
+def conic_solver_fn(solver: str, **kw):
+    """The batch solver a resolved ``solver`` name stands for (``kw``: its keyword arguments; ``alpha``
+    reaches only the DR splitting); 'fused' is the fused-kernel route of ``solve_conic_batched``."""
+    alpha = kw.pop("alpha", None)
+    if solver == "fused":
+        return lambda cp: conic_ipm.solve_batched_fused(cp, **kw)
+    if solver == "ipm":
+        return lambda cp: conic_ipm.solve_batched(cp, **kw)
+    if solver == "nsipm":
+        return lambda cp: conic_nsipm.solve_batched(cp, **kw)
+    return lambda cp: conicsolver.solve_batched(cp, alpha=alpha, **kw)
 
 
 class _SolveConic(torch.autograd.Function):
-    """forward: staged IPM (``fused=False``) or the fused kernel (``fused=True``)
-    -> HSDE Newton polish -> poison; backward: adjoint solve of the residual
-    map; jvp: tangent solve. The dataclasses are flattened to tensors here."""
+    """forward: the solver (``'ipm'`` / ``'nsipm'`` / ``'dr'`` staged, or ``'fused'``: the fused kernels
+    by shape) -> HSDE Newton polish -> poison; backward: adjoint solve of the residual map; jvp: tangent
+    solve. The dataclasses are flattened to tensors here."""
 
     @staticmethod
-    def forward(ctx, A, b, c, cones, fused, max_iters, tol, method, refine_iters, polish, with_info, poison):
+    def forward(ctx, A, b, c, cones, solver, max_iters, tol, alpha, method, refine_iters, polish, with_info, poison):
         cp = ConeProgram(A.detach(), b.detach(), c.detach(), cones)
-        if fused:
-            sol, info = conic_ipm.solve_batched_fused(cp, max_iters=max_iters, tol=tol)
-        else:
-            sol, info = conic_ipm.solve_batched(cp, max_iters=max_iters, tol=tol)
+        sol, info = conic_solver_fn(solver, max_iters=max_iters, tol=tol, alpha=alpha)(cp)
         if polish:
-            sol = conic_diff.refine_solution(cp, sol, steps=polish, method="gram" if fused else method)
+            sol = conic_diff.refine_solution(cp, sol, steps=polish, method="gram" if solver == "fused" else method)
         if poison:
             sol = _poison_unconverged(sol, info.converged)
+        # forward-mode AD refuses outputs that are views (the polish slices x, y, s out of one vector)
+        sol = sol.map(lambda t: t.clone() if t._base is not None else t)
         ctx.save_for_backward(*cp.tensors(), *sol.tensors())
         ctx.save_for_forward(*cp.tensors(), *sol.tensors())
         ctx.cones, ctx.method, ctx.refine_iters, ctx.with_info = cones, method, refine_iters, with_info
@@ -240,7 +262,7 @@ class _SolveConic(torch.autograd.Function):
         g = conic_diff.reverse_differentiate(
             cp, sol, gx, gy, gs, method=ctx.method, refine_iters=ctx.refine_iters
         )
-        return (g.dA, g.db, g.dc) + (None,) * 9
+        return (g.dA, g.db, g.dc) + (None,) * 10
 
     @staticmethod
     def jvp(ctx, dA, db, dc, *_options):
@@ -251,11 +273,11 @@ class _SolveConic(torch.autograd.Function):
         return (d.dx, d.dy, d.ds) + ((None,) * 5 if ctx.with_info else ())
 
 
-def _run_conic(cp, fused, max_iters, tol, method, refine_iters, polish, with_info, poison):
+def _run_conic(cp, solver, max_iters, tol, alpha, method, refine_iters, polish, with_info, poison):
     batched = cp.c.ndim > 1
     tensors = cp.tensors() if batched else tuple(t[None] for t in cp.tensors())
     out = _SolveConic.apply(
-        *tensors, cp.cones, fused, max_iters, tol, method, refine_iters, polish, with_info, poison
+        *tensors, cp.cones, solver, max_iters, tol, alpha, method, refine_iters, polish, with_info, poison
     )
     if not batched:
         out = tuple(t[0] for t in out)
@@ -269,6 +291,7 @@ def solve_conic(
     *,
     max_iters: int | None = None,
     tol: float | None = None,
+    alpha: float | None = None,
     method: str | None = None,
     refine_iters: int | None = None,
     mode: str = "vjp",
@@ -280,14 +303,16 @@ def solve_conic(
     homogeneous self-dual embedding at the solution). ``cp`` is one instance
     or a ``(B, ...)`` batch.
 
-    ``solver='auto'`` / ``'ipm'`` runs the staged NT-scaled interior-point
-    method (``solvers/conic_ipm.py::solve_batched``) on symmetric-cone
-    programs (zero/nonneg/nonpos/soc/rsoc/psd); ``'nsipm'`` and ``'dr'``, exp/
-    pow blocks and equality-only programs raise ``NotImplementedError`` until
-    the slice of the port that brings them. ``polish`` Newton-refines the
-    solved point against the HSDE residual map before differentiating
-    (:func:`conic_diff.refine_solution`). ``max_iters``/``tol``/``method``/
-    ``refine_iters``/``polish`` default from the active config (per dtype).
+    ``solver='auto'`` runs the staged NT-scaled interior-point method
+    (``solvers/conic_ipm.py``) on symmetric-cone programs (zero/nonneg/nonpos/
+    soc/rsoc/psd), the staged nonsymmetric-cone IPM (``solvers/conic_nsipm.py``)
+    on programs with exp/pow/dual_exp/dual_pow blocks, and the DR splitting
+    (``solvers/conic.py``) on equality-only programs; ``'ipm'`` / ``'nsipm'`` /
+    ``'dr'`` force one (``alpha``, the over-relaxation, reaches only DR).
+    ``polish`` Newton-refines the solved point against the HSDE residual map
+    before differentiating (:func:`conic_diff.refine_solution`).
+    ``max_iters``/``tol``/``method``/``refine_iters``/``polish`` default from
+    the active config (per solver and dtype).
 
     Both AD rules sit on one ``torch.autograd.Function`` (``backward`` and
     ``jvp``); ``mode`` ('vjp' or 'jvp') is kept for parity with the JAX
@@ -298,17 +323,13 @@ def solve_conic(
     unconverged instances are NaN-poisoned."""
     if mode not in ("vjp", "jvp"):
         raise ValueError(f"mode must be 'vjp' or 'jvp', got {mode!r}")
-    if solver in ("nsipm", "dr"):
-        raise NotImplementedError(_CONIC_WAITING.format(solver))
-    if solver not in ("auto", "ipm"):
-        raise ValueError(f"solver must be 'auto', 'ipm', 'nsipm' or 'dr', got {solver!r}")
-    conic_ipm._check_supported(cp.cones)
+    solver = resolve_conic_solver(solver, cp.cones)
     cfg = get_config()
     dt = cp.A.dtype
     method = cfg.conic_method if method is None else method
     refine_iters = cfg.conic_refine(dt) if refine_iters is None else refine_iters
     polish = cfg.conic_polish_steps(dt) if polish is None else polish
-    return _run_conic(cp, False, max_iters, tol, method, refine_iters, polish, with_info, cfg.nan_on_unconverged)
+    return _run_conic(cp, solver, max_iters, tol, alpha, method, refine_iters, polish, with_info, cfg.nan_on_unconverged)
 
 
 @full_precision
@@ -322,18 +343,19 @@ def solve_conic_batched(
     polish: int | None = None,
     with_info: bool = False,
 ):
-    """Solve a ``(B, ...)`` batch of symmetric-cone programs with the fused
-    single-kernel IPM (``ops/cuda/conic_pdip.py``; the staged solver for
-    layouts past its envelope), Newton-polish the solved points against the
+    """Solve a ``(B, ...)`` batch of conic programs with a fused single-kernel
+    IPM — K6 (``ops/cuda/conic_pdip.py``) for the symmetric cones, K7
+    (``ops/cuda/ns_pdip.py``) for programs with exp/pow blocks, each with its
+    staged solver for layouts past its envelope, the DR splitting for
+    equality-only programs — Newton-polish the solved points against the
     HSDE residual on the ``gram`` route (dtype-aware default number of
     steps), and differentiate through the homogeneous-embedding residual at
     the solutions (``method='gram'``: the normal equations on the Cholesky
     kernels). The highest-throughput conic entry point (BASELINE config 3).
     ``with_info=True`` returns ``(sol, info)`` with per-instance diagnostics
     as a non-differentiable output."""
-    conic_ipm._check_supported(cp.cones)
     if cp.c.ndim != 2:
         raise ValueError(f"solve_conic_batched takes a (B, ...) batch, got c of shape {tuple(cp.c.shape)}")
     cfg = get_config()
     polish = cfg.conic_polish_steps(cp.A.dtype) if polish is None else polish
-    return _run_conic(cp, True, max_iters, tol, method, refine_iters, polish, with_info, cfg.nan_on_unconverged)
+    return _run_conic(cp, "fused", max_iters, tol, None, method, refine_iters, polish, with_info, cfg.nan_on_unconverged)

@@ -25,10 +25,10 @@ Two solvers:
   ``ops/cuda/conic_pdip.py``) for batches inside its envelope, the staged
   solver past it, chosen by shape.
 
-Exp/pow blocks and equality-only programs (``mC == 0``) take the
-nonsymmetric IPM or the DR splitting in the JAX package; those come with the
-slice of the port that brings kernel K7, and until then they raise
-``NotImplementedError`` here.
+:func:`solve_batched_fused` sends programs with exp/pow blocks to the
+nonsymmetric IPM (``solvers/conic_nsipm.py``, kernel K7) and equality-only
+programs (``mC == 0``, no cone to scale) to the DR splitting
+(``solvers/conic.py``), as the JAX module does.
 """
 
 from __future__ import annotations
@@ -49,11 +49,6 @@ from .conic import ConicSolveInfo
 Tensor = torch.Tensor
 
 _IPM_KINDS = ("zero", "nonneg", "nonpos", "soc", "rsoc", "psd")
-_WAITING = (
-    "the exp/pow cones and equality-only programs take the nonsymmetric IPM or the DR splitting, "
-    "which come with the slice of the port that brings kernel K7 (ops/pallas/ns_pdip.py, "
-    "solvers/conic_nsipm.py, solvers/conic.py)"
-)
 
 
 def supports(cones) -> bool:
@@ -63,28 +58,37 @@ def supports(cones) -> bool:
 
 def _check_supported(cones) -> None:
     if not supports(cones):
-        raise NotImplementedError(f"conic_ipm: cones {cones!r}: {_WAITING}")
+        raise ValueError(
+            f"conic_ipm supports zero/nonneg/nonpos/soc/rsoc/psd cones; got {cones!r} (exp/pow blocks take "
+            "solvers/conic_nsipm.py)"
+        )
     if all(k == "zero" for k, _, _ in cones.blocks):
-        raise NotImplementedError(f"conic_ipm: an equality-only program has no cone to scale; {_WAITING}")
+        raise ValueError("conic_ipm: an equality-only program has no cone to scale; use solvers.conic")
 
 
-def _row_transform(cones):
+def _row_transform(cones, allow_ns: bool = False):
     """Static orthogonal R (dense numpy) and the internal layout (p zero rows,
     l nonneg rows, soc dims, psd sides) with rows ordered ``[zero | nonneg |
     soc... | psd...]``. ``R A x + R s = R b`` with ``R s`` in the internal
-    cone; duals map back as ``y = R' y_int``. PSD rows pass through."""
+    cone; duals map back as ``y = R' y_int``. PSD rows pass through.
+
+    With ``allow_ns=True`` (the nonsymmetric IPM), exp/pow blocks pass through
+    unchanged at the end, ``[zero | nonneg | soc... | psd... | ns...]``, and a
+    sixth value lists them as ``(kind, alpha)`` (``alpha`` None for exp)."""
     m = cones.total_dim
     R = np.zeros((m, m))
-    zero_rows, soc_blocks, psd_blocks = [], [], []
-    for kind, off, dim in cones.offsets():
+    zero_rows, soc_blocks, psd_blocks, ns_src = [], [], [], []
+    for kind, off, dim, prm in cones.offsets_params():
         if kind == "zero":
             zero_rows.extend(range(off, off + dim))
         elif kind in ("soc", "rsoc"):
             soc_blocks.append((kind, off, dim))
         elif kind == "psd":
             psd_blocks.append((off, dim))
+        elif allow_ns and kind in ("exp", "pow", "dual_exp", "dual_pow"):
+            ns_src.append((kind, off, prm))
         elif kind not in ("nonneg", "nonpos"):  # exhaustive: never silently rotate an unknown kind
-            raise NotImplementedError(f"_row_transform: cone kind {kind!r}: {_WAITING}")
+            raise ValueError(f"_row_transform: unsupported cone kind {kind!r}")
     row = 0
     for r in zero_rows:
         R[row, r] = 1.0
@@ -114,7 +118,15 @@ def _row_transform(cones):
             R[row + j, off + j] = 1.0
         psd_sides.append(_tri_side(dim))
         row += dim
+    ns_blocks = []
+    for kind, off, prm in ns_src:
+        for j in range(3):
+            R[row + j, off + j] = 1.0
+        ns_blocks.append((kind, None if prm is None else float(prm)))
+        row += 3
     assert row == m
+    if allow_ns:
+        return R, p, l, tuple(soc_dims), tuple(psd_sides), tuple(ns_blocks)
     return R, p, l, tuple(soc_dims), tuple(psd_sides)
 
 
@@ -352,8 +364,25 @@ def solve_batched_fused(
     (:func:`~diffopt_tpu_torch.ops.cuda.conic_pdip.in_envelope`), else with
     the staged solver (:func:`solve_batched`) — chosen by shape, never by a
     failure. ``info.iterations`` is per instance; ``converged`` is
-    ``max(pres, dres) < 10 tol`` as in the JAX package's fused route."""
-    _check_supported(cp.cones)
+    ``max(pres, dres) < 10 tol`` as in the JAX package's fused route.
+
+    Programs with exp/pow blocks go to the nonsymmetric IPM (its fused kernel
+    K7 for a ``(B, ...)`` batch, its staged solver otherwise; its own
+    ``max_iters`` default), equality-only programs to the DR splitting (the
+    caller's ``tol``, DR's own iteration cap)."""
+    if not supports(cp.cones):
+        from . import conic_nsipm
+
+        if conic_nsipm.supports(cp.cones) and any(k != "zero" for k, _, _ in cp.cones.blocks):
+            solve_ns = conic_nsipm.solve_batched_fused if cp.c.ndim == 2 else conic_nsipm.solve_batched
+            return solve_ns(cp, max_iters=max_iters, tol=tol, reg=reg)
+        from . import conic as conicsolver
+
+        return conicsolver.solve_batched(cp, tol=tol)
+    if all(k == "zero" for k, _, _ in cp.cones.blocks):
+        from . import conic as conicsolver
+
+        return conicsolver.solve_batched(cp, tol=tol)
     cfg = get_config()
     dt, dev = cp.A.dtype, cp.A.device
     n = cp.num_vars

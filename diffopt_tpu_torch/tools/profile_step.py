@@ -1,6 +1,6 @@
 """Where one solve + VJP step spends its device time.
 
-    python3 -m diffopt_tpu_torch.tools.profile_step [--batch 32768] [--path main|staged|conic]
+    python3 -m diffopt_tpu_torch.tools.profile_step [--batch 32768] [--path main|staged|conic|exp]
 
 Runs one step forward + backward once to warm up and once under
 ``torch.profiler``, and prints the device time by kernel, the step's wall
@@ -10,8 +10,11 @@ time, and the card's name and power limit. ``--path main`` is
 VJP), both on dense QPs with n = 64, m = 32, p = 16, f32; ``--path conic`` is
 ``solve_conic_batched(max_iters=50, tol=1e-5, method="gram")`` (fused conic
 IPM, gram polish and VJP on the Cholesky kernels) on the SOCP of BASELINE
-config 3 (n = 16, SOC(17), f32). The host syncs and the step's time without
-the profiler are printed too.
+config 3 (n = 16, SOC(17), f32); ``--path exp`` is ``solve_conic_batched``
+with its defaults (fused nonsymmetric IPM K7, gram polish and VJP) on the
+entropy family of the exp benchmark (k = 3, f32; ``--batch`` is capped at its
+16384). The host syncs and the step's time without the profiler are printed
+too.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=32768)
-    ap.add_argument("--path", choices=("main", "staged", "conic"), default="main", help="which entry point to profile")
+    ap.add_argument("--path", choices=("main", "staged", "conic", "exp"), default="main", help="which entry point to profile")
     ap.add_argument("--rows", type=int, default=16, help="rows of the table")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -35,17 +38,20 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import diffopt_tpu_torch as dtt
-    from diffopt_tpu_torch.utils.testing import make_batch, make_socp_batch
+    from diffopt_tpu_torch.utils.testing import make_batch, make_entropy_batch, make_socp_batch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     if args.path == "conic":
         prog = make_socp_batch(args.batch, n=16, seed=0).map(lambda t: t.requires_grad_())
+    elif args.path == "exp":
+        args.batch = min(args.batch, 16384)
+        prog = make_entropy_batch(args.batch, k=3, seed=0).map(lambda t: t.requires_grad_())
     else:
         prog = make_batch(args.batch, 64, 32, 16, torch.float32, "cuda", gen).map(lambda t: t.requires_grad_())
 
     from diffopt_tpu_torch.ops import kkt
-    from diffopt_tpu_torch.solvers import conic_ipm
+    from diffopt_tpu_torch.solvers import conic_ipm, conic_nsipm
     from diffopt_tpu_torch.solvers import qp as qpsolver
 
     def step():
@@ -55,11 +61,14 @@ def main():
             sol, _ = dtt.solve_qp_batched(prog, max_iters=25, with_info=True)
         elif args.path == "staged":
             sol, _ = dtt.solve_qp(prog, with_info=True)
-        else:
+        elif args.path == "conic":
             sol, _ = dtt.solve_conic_batched(prog, max_iters=50, tol=1e-5, method="gram", with_info=True)
+        else:
+            sol, _ = dtt.solve_conic_batched(prog, with_info=True)
         (sol.tensors()[0] ** 2).sum().backward()
 
-    count_syncs = lambda: qpsolver.solve_batched.host_syncs + kkt._auto_solve.host_syncs + conic_ipm.solve_batched.host_syncs
+    count_syncs = lambda: (qpsolver.solve_batched.host_syncs + kkt._auto_solve.host_syncs
+                           + conic_ipm.solve_batched.host_syncs + conic_nsipm.solve_batched.host_syncs)
     step()
     torch.cuda.synchronize()
     syncs = count_syncs()
@@ -94,7 +103,7 @@ def main():
     by = lambda *keys: sum(e.self_device_time_total for e in events if any(k in e.key for k in keys)) / 1e3
     ours = {"K1 pdip": by("pdip_kernel"), "K2 ldl_factor": by("ldl_factor_kernel"), "K3 ldl_solve": by("ldl_solve_kernel"),
             "K4 chol_factor": by("chol_factor_kernel"), "K5 chol_solve": by("chol_solve_kernel"),
-            "K6 conic_pdip": by("conic_kernel")}
+            "K6 conic_pdip": by("conic_kernel"), "K7 ns_pdip": by("ns_kernel")}
     own_ms = sum(ours.values())
     print("hand-written kernels: " + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items() if v)
           + f"; everything else (PyTorch glue and library calls) {busy_ms - own_ms:.2f} ms of {busy_ms:.2f} ms busy")

@@ -183,6 +183,14 @@ def cone_pad_spec(specs: Sequence[ConeSpec]) -> ConeSpec:
     return ConeSpec(blocks)
 
 
+_NS_INTERIOR = {
+    "exp": [0.0, 1.0, 2.0],  # 1 e^0 = 1 < 2
+    "dual_exp": [-1.0, 1.0, 1.0],  # 1 e^-1 < e 1
+    "pow": [1.0, 1.0, 0.0],  # 1 > 0
+    "dual_pow": [1.0, 1.0, 0.0],  # (1/a)^a (1/(1-a))^(1-a) > 0
+}
+
+
 def pad_cone_program(cp: ConeProgram, target: ConeSpec) -> ConeProgram:
     """Pad one (unbatched) instance's rows to ``target`` (same n) preserving
     its solution: x identical, original (y, s) on the original rows, padded
@@ -219,10 +227,12 @@ def pad_cone_program(cp: ConeProgram, target: ConeSpec) -> ConeProgram:
             if s_dim > 0:
                 raise ValueError("psd blocks cannot be grown in place (svec interleaving); only whole appended psd blocks are supported")
             pad = sym_to_svec(torch.eye(_tri_side(extra), dtype=cp.b.dtype, device=cp.b.device))
+        elif kind in _NS_INTERIOR:
+            # fixed 3-dim kinds: only whole appended blocks; s a strictly interior point (for the power
+            # cones whatever alpha), dual 0 — complementarity with s interior forces the padded dual to 0
+            pad = torch.tensor(_NS_INTERIOR[kind], dtype=cp.b.dtype, device=cp.b.device)
         else:
-            raise NotImplementedError(
-                f"cannot pad cone kind {kind!r}: the exp/pow cones come with the slice of the port that brings kernel K7"
-            )
+            raise ValueError(f"cannot pad cone kind {kind!r}")
         b_rows.append(pad)
     return ConeProgram(A=torch.cat(A_rows, dim=0), b=torch.cat(b_rows, dim=0), c=cp.c, cones=target)
 

@@ -52,6 +52,17 @@ class DiffOptConfig:
     ipm_tol_f32: float = 5e-6
     ipm_reg_f64: float = 1e-11
     ipm_reg_f32: float = 1e-7
+    # read by solvers/conic_nsipm.py (dual-scaling IPM, exp/pow blocks) and
+    # ops/cuda/ns_pdip.py: its steps are shorter than NT steps, so the cap is
+    # higher, and its f64 tolerance looser (the Hessian conditions like 1/mu^2)
+    nsipm_max_iters: int = 150
+    nsipm_tol_f64: float = 1e-8
+    nsipm_tol_f32: float = 5e-6
+    # read by solvers/conic.py (DR splitting: equality-only programs, or on request)
+    dr_max_iters: int = 20000
+    dr_tol_f64: float = 1e-10
+    dr_tol_f32: float = 3e-6  # a 1e-10 target can never converge in f32
+    dr_relaxation: float = 1.5
 
     # --- conic differentiation ----------------------------------------------
     # read by conic_diff.resolve_method and solve.solve_conic. 'auto' =
@@ -88,6 +99,12 @@ class DiffOptConfig:
 
     def ipm_reg(self, dtype) -> float:
         return self.ipm_reg_f64 if dtype == torch.float64 else self.ipm_reg_f32
+
+    def nsipm_tol(self, dtype) -> float:
+        return self.nsipm_tol_f64 if dtype == torch.float64 else self.nsipm_tol_f32
+
+    def dr_tol(self, dtype) -> float:
+        return self.dr_tol_f64 if dtype == torch.float64 else self.dr_tol_f32
 
     def conic_refine(self, dtype) -> int:
         if dtype == torch.float64:

@@ -104,3 +104,73 @@ def make_sdp_batch(B, side=4, n=3, seed=0, dtype=torch.float32, device="cuda"):
         c=as_t(rng.normal(size=(B, n))),
         cones=ConeSpec([("psd", tri), ("soc", n + 1)]),
     )
+
+
+def make_entropy_batch(B, k=3, seed=0, dtype=torch.float32, device="cuda"):
+    """Weighted entropy maximisation ``max sum_i w_i t_i s.t. sum x = 1, (t_i, x_i, 1) in K_exp``
+    (``t_i <= -x_i log x_i``), weights w uniform in [0.5, 2] per instance — the family of the JAX
+    package's exp-cone benchmark (``benchmarks/exp_bench.py``), made with numpy from ``seed`` (the same
+    numbers) and placed on ``device``. Rows ``[zero(1) | exp(3) x k]``, variables ``[x | t]``."""
+    import numpy as np
+
+    from ..cones import ConeSpec
+    from ..ir import ConeProgram
+
+    device = _on_device(device)
+    rng = np.random.default_rng(seed)
+    A = np.zeros((1 + 3 * k, 2 * k))
+    b = np.zeros(1 + 3 * k)
+    A[0, :k] = -1.0
+    b[0] = -1.0
+    for i in range(k):
+        r = 1 + 3 * i
+        A[r, k + i] = -1.0
+        A[r + 1, i] = -1.0
+        b[r + 2] = 1.0
+    w = rng.uniform(0.5, 2.0, size=(B, k)).astype(np.float32)
+    c = np.concatenate([np.zeros((B, k), np.float32), -w], axis=1)
+    as_t = lambda x: torch.as_tensor(np.ascontiguousarray(x)).to(device=device, dtype=dtype)
+    return ConeProgram(
+        A=as_t(np.broadcast_to(A, (B,) + A.shape)), b=as_t(np.broadcast_to(b, (B,) + b.shape)), c=as_t(c),
+        cones=ConeSpec([("zero", 1)] + [("exp", 3)] * k),
+    )
+
+
+def make_pow_batch(B, seed=3, dtype=torch.float64, device="cuda"):
+    """Mixed zero(1) + nonneg(2) + soc(3) + pow(0.6) + dual_pow(0.4) programs, n = 4, built from a known
+    strictly feasible primal-dual pair (zero duality gap by construction) — the family of the JAX
+    package's fused nonsymmetric-kernel tests (``tests/test_ns_fused.py::_pow_batch``), made with numpy
+    from ``seed`` (the same numbers) and placed on ``device``."""
+    import numpy as np
+
+    from ..cones import ConeSpec
+    from ..ir import ConeProgram
+
+    device = _on_device(device)
+    rng = np.random.default_rng(seed)
+    cones = ConeSpec([("zero", 1), ("nonneg", 2), ("soc", 3), ("pow", 3, 0.6), ("dual_pow", 3, 0.4)])
+    m, n = cones.total_dim, 4
+    A_b, b_b, c_b = [], [], []
+    for _ in range(B):
+        A = rng.normal(size=(m, n))
+        xs = rng.normal(size=n)
+
+        def spow(al, dual):
+            x = rng.uniform(0.8, 1.5)
+            y = rng.uniform(0.8, 1.5)
+            cap = (x / al) ** al * (y / (1 - al)) ** (1 - al) if dual else x**al * y ** (1 - al)
+            return np.array([x, y, rng.uniform(-0.5, 0.5) * cap])
+
+        v = rng.normal(size=2)
+        soc_s = np.concatenate([[np.linalg.norm(v) + 0.4], v])
+        w2 = rng.normal(size=2) * 0.1
+        soc_y = np.concatenate([[np.linalg.norm(w2) + 0.3], w2])
+        s_star = np.concatenate([np.zeros(1), np.abs(rng.normal(size=2)) + 0.2, soc_s, spow(0.6, False), spow(0.4, True)])
+        # the dual of pow is dual_pow and the other way round
+        y_star = np.concatenate([rng.normal(size=1), np.abs(rng.normal(size=2)) + 0.2, soc_y, spow(0.6, True),
+                                 spow(0.4, False)])
+        A_b.append(A)
+        b_b.append(A @ xs + s_star)
+        c_b.append(-A.T @ y_star)
+    as_t = lambda x: torch.as_tensor(np.stack(x)).to(device=device, dtype=dtype)
+    return ConeProgram(A=as_t(A_b), b=as_t(b_b), c=as_t(c_b), cones=cones)

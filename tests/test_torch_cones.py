@@ -2,8 +2,9 @@
 prepared operator) per kind, the svec helpers, membership and the Jacobi
 eigensolver, against ``diffopt_tpu.cones`` / ``diffopt_tpu.ops.smalleig`` on
 the same numpy inputs, f64 (agreement to 1e-12; the PSD blocks go through
-the same cyclic Jacobi on both sides). The exp/pow kinds are accepted as
-metadata and raise until the slice that brings them."""
+the same cyclic Jacobi on both sides). The exp/pow kinds are held against the
+JAX package in ``test_torch_ns_cones.py``; here, that a spec mixing them with
+the symmetric kinds projects and differentiates blockwise."""
 
 import jax
 import jax.numpy as jnp
@@ -118,12 +119,20 @@ def test_jacobi_eigh_matches_jax(side):
 
 
 def test_nonsymmetric_kinds_are_metadata_and_raise_naming_their_slice():
+    """The exp/pow kinds carry their exponent as the JAX spec does, and every verb takes them (the
+    slice that brings them is in): Pi, DPi applied, dense and prepared agree blockwise."""
     spec = tcones.ConeSpec([("exp", 3), ("pow", 3, 0.3), ("soc", 3)])
     assert spec.blocks == jcones.ConeSpec([("exp", 3), ("pow", 3, 0.3), ("soc", 3)]).blocks
-    v = torch.zeros(2, 9, dtype=torch.float64)
-    for fn in (lambda: tcones.pi(spec, v), lambda: tcones.dpi_apply(spec, v, v), lambda: tcones.dpi_dense(spec, v),
-               lambda: tcones.dpi_operator(spec, v)):
-        with pytest.raises(NotImplementedError, match="K7"):
-            fn()
+    rng = np.random.default_rng(4)
+    v, dv = (torch.from_numpy(rng.normal(size=(2, 9))) for _ in range(2))
+    p = tcones.pi(spec, v)
+    D = tcones.dpi_dense(spec, v)
+    fa, fr = tcones.dpi_operator(spec, v)
+    np.testing.assert_allclose(tcones.dpi_apply(spec, v, dv).numpy(), (D @ dv[..., None])[..., 0].numpy(), atol=1e-14)
+    np.testing.assert_allclose(fa(dv).numpy(), tcones.dpi_apply(spec, v, dv).numpy(), atol=1e-14)
+    np.testing.assert_allclose(fr(dv).numpy(), (D.transpose(1, 2) @ dv[..., None])[..., 0].numpy(), atol=1e-14)
+    for k, (_, off, d) in enumerate(spec.offsets()):
+        one = tcones.ConeSpec([spec.blocks[k]])
+        np.testing.assert_allclose(p[:, off:off + d].numpy(), tcones.pi(one, v[:, off:off + d]).numpy(), atol=0)
     with pytest.raises(ValueError, match="exponent"):
         tcones.ConeSpec([("pow", 3)])

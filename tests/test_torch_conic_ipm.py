@@ -111,8 +111,21 @@ def test_fused_entry_routes_by_shape_and_unported_kinds_raise():
     one, oi = tipm.solve(cp.map(lambda t: t[0]))
     assert one.x.shape == (n,) and oi.iterations.shape == ()
     np.testing.assert_allclose(one.x.numpy(), s.x[0].numpy(), rtol=0, atol=1e-10)
-    # exp/pow blocks and equality-only programs name the slice that brings them
-    z = torch.zeros(1, 3, 1, dtype=torch.float64)
-    for spec in (ConeSpec([("exp", 3)]), ConeSpec([("zero", 3)])):
-        with pytest.raises(NotImplementedError, match="K7"):
-            tipm.solve_batched_fused(ConeProgram(z, z[..., 0], z[:, 0], spec))
+    # exp/pow blocks take the nonsymmetric IPM and equality-only programs the DR splitting, as in the
+    # JAX package; the staged symmetric IPM itself refuses both
+    from diffopt_tpu_torch.solvers import conic as tdr
+    from diffopt_tpu_torch.solvers import conic_nsipm as tns
+    from diffopt_tpu_torch.utils.testing import make_entropy_batch
+
+    ent = make_entropy_batch(2, k=1, dtype=torch.float64, device="cpu")
+    torch.testing.assert_close(tipm.solve_batched_fused(ent)[0].x, tns.solve_batched_fused(ent)[0].x, rtol=0, atol=0)
+    rng = np.random.default_rng(3)
+    Ae = torch.from_numpy(rng.normal(size=(2, 2, 3)))
+    eq = ConeProgram(Ae, torch.from_numpy(rng.normal(size=(2, 2))),
+                     -torch.einsum("bij,bi->bj", Ae, torch.from_numpy(rng.normal(size=(2, 2)))), ConeSpec([("zero", 2)]))
+    dsol, dinfo = tipm.solve_batched_fused(eq)
+    torch.testing.assert_close(dsol.x, tdr.solve_batched(eq)[0].x, rtol=0, atol=0)
+    assert bool(dinfo.converged.all())
+    for cp_ in (ent, eq):
+        with pytest.raises(ValueError):
+            tipm.solve_batched(cp_)

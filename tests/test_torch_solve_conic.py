@@ -103,10 +103,13 @@ def test_solve_conic_value_vjp_and_jvp_match_jax(one):
         out = dtt.solve_conic(dual, mode="jvp")
         for k in "xys":
             assert _rel(fwAD.unpack_dual(getattr(out, k)).tangent, one["jvp"][k]) <= GRAD_TOL, k
-    # solvers of later slices name it
-    for solver in ("nsipm", "dr"):
-        with pytest.raises(NotImplementedError, match="K7"):
-            dtt.solve_conic(cp, solver=solver)
+    # the nonsymmetric IPM and the DR splitting solve the same symmetric program when asked to
+    ns = dtt.solve_conic(cp.map(torch.Tensor.detach), solver="nsipm")
+    assert _rel(ns.x, one["sol"]["x"]) <= 1e-6
+    dr = dtt.solve_conic(cp.map(torch.Tensor.detach), solver="dr", tol=1e-9)
+    assert _rel(dr.x, one["sol"]["x"]) <= 1e-5
+    with pytest.raises(ValueError, match="solver"):
+        dtt.solve_conic(cp, solver="scs")
 
 
 def test_conic_diff_context_matches_jax_context(one):

@@ -1,13 +1,13 @@
 // Fused batched symmetric-cone interior-point solver: the whole NT-scaled
 // Mehrotra predictor-corrector loop for
 //     min c'x  s.t.  AE x = bE,  AC x + s = bC,  s in K = nonneg(l) x soc(d_1..) x psd(side_1..)
-// in one kernel, one thread block per instance.
+// in one kernel, one instance per team of TW = 1, 2 or 8 warps.
 //
 // Replaces diffopt_tpu/ops/pallas/conic_pdip.py::solve_tile_fused (kernel body
 // _kernel, with _ldl_value / _ldl_solve_value and the lanes-batched Jacobi
 // _jacobi_eigh_ll). The TPU kernel puts 128 instances along the vector lanes
 // and freezes finished lanes by select; here every per-lane quantity (done,
-// stalled, dead, finite, errb, itdone, alpha) is a per-block scalar and a
+// stalled, dead, finite, errb, itdone, alpha) is a per-team scalar and a
 // frozen instance leaves its loop: a frozen lane keeps its state, so the
 // result is the same. The arithmetic, constants and exit rules are the
 // reference's: NT scaling per block (eta, v, wb per soc block through the
@@ -18,26 +18,50 @@
 // against K, a Lyapunov jsolve in the eigenbasis of lam shared by the four step
 // lengths, scale-relative metrics tested before the step, best-iterate
 // tracking, a stall exit after five iterations without 2% progress on mu and
-// the error, a mu <= 0 freeze and a non-finite guard.
+// the error, a mu <= 0 freeze and a non-finite guard. Every team size does
+// the same arithmetic in the same order: its outputs are the same.
 //
 // Bound on an H100: operations. An instance reads (p + mC)(n + 1) + n words
 // once and does about N^3 / 3 flops for the factorisation plus eight Jacobi
 // eigendecompositions per psd block per iteration. The critical path is
-// sequential: N elimination steps (one block barrier each), 2 N substitution
+// sequential: N elimination steps (one team barrier each), 2 N substitution
 // steps per solve (one warp, right-hand side in registers), the rotation
 // chains of the psd blocks. So everything an iteration touches stays in shared
 // memory or registers: K is assembled straight into dense.cuh's register
-// tiles (its -W^2 block computed entry by entry from the scaling, never
-// stored), only L is written out, the refinement residual is formed from the
-// blocks of K, SOC reductions are warp reductions, and each psd block's
-// eigendecompositions and small products run on one warp in shared memory
-// while other warps take other blocks. Several blocks stay resident per SM so
-// that one instance's serial stretches overlap another's arithmetic.
+// tiles on the team's thread grid (its -W^2 block computed entry by entry from
+// the scaling, never stored), only L is written out, the refinement residual
+// is formed from the blocks of K, SOC reductions are warp reductions, and each
+// psd block's eigendecompositions and small products run on one warp in
+// shared memory while the team's other warps take other blocks.
+//
+// Teams. At the sizes users send (N = 17 to 43) a phase has a few dozen
+// independent updates and then a barrier, and the substitutions and Jacobi
+// sweeps run on one warp whatever the team: eight warps per instance leave
+// seven waiting, and their registers hold the SM to two instances where
+// shared memory holds twenty (9 KB an instance at the SOCP in f32). So one
+// instance gets the fewest warps that serve it and the SM gets as many
+// instances as it holds, each chain overlapping the others. Layout: ONE TEAM
+// PER THREAD BLOCK (blockDim = 32 TW). The block barrier is then the team's,
+// and for one warp it is a __syncwarp; the SM's limit of 32 resident blocks
+// bounds one-warp teams at 32 per SM, which shared memory and registers reach
+// first at the layouts measured (22-24); several teams per block with named
+// barriers would buy nothing past that and cost a barrier id per team. The
+// team sizes are one, two and eight warps (kTeams): four warps hold the same
+// 64 rows as two, so the rule below never picks them, and they were slower
+// than two at every layout timed on an H100. Each
+// team size is its own instantiation with its own __launch_bounds__
+// (conic_min_blocks), and the launch rule (conic_team, mirrored by
+// ops/cuda/conic_pdip.py::team_for) picks the smallest team whose tiles hold
+// N (one warp to 40 rows, two to 64, eight to 128): measured on an H100 it is
+// the fastest at every layout timed (PERF.md; one warp would spill its tiles
+// past 40 rows, two were faster at N = 43). A team that does not take a
+// layout is refused, never replaced by another.
 //
 // Envelope: N = n + p + mC <= 128 (register tiles), psd side <= 12, at most
 // kMaxSoc soc and kMaxPsd psd blocks, conic_smem_bytes(...) <= 227 KB less
-// the static pointer table.
+// the static pointer table for the team that takes it.
 #include "ipm.cuh"
+#include "prof.cuh"
 
 namespace dk {
 
@@ -46,8 +70,13 @@ constexpr int kMaxPsd = 64;
 constexpr int kMaxSide = 12;
 constexpr int kConicSlots = 64;
 enum BlockKind { kNonneg = 0, kSoc = 1, kPsd = 2 };
+// counters of the phase probes (prof.cuh; tools/k6_phase_cycles.py names them in this order)
+enum ConicProf {
+  kProfMetrics, kProfNt, kProfFactor, kProfWApply, kProfLamEigs, kProfSolvePred, kProfStepPred, kProfJordan,
+  kProfSolveCorr, kProfStepCorr, kProfUpdate, kProfInit, kProfExit, kProfTotal, kProfBodies
+};
 // scalar slots in shared memory
-enum ConicSlot { sStep = 16 };  // kWarps partial minima of a step length, after the metrics' IpmSlot
+enum ConicSlot { sStep = 16 };  // the team's per-warp partial minima of a step length, after the metrics' IpmSlot
 
 struct Layout {
   int n, p, l, nsoc, npsd;
@@ -75,26 +104,29 @@ __host__ __device__ inline size_t conic_int_bytes(const Layout& L) {
   return (ints * 4 + 15) / 16 * 16;
 }
 
-// words of the working type (mirrored by ops/cuda/conic_pdip.py::smem_bytes)
-__host__ __device__ inline size_t conic_words(const Layout& L) {
+// words of the working type for a team of tw warps (mirrored by
+// ops/cuda/conic_pdip.py::smem_bytes): the team's pivot column and one psd
+// workspace per warp depend on tw, the rest is the instance's
+__host__ __device__ inline size_t conic_words(const Layout& L, int tw) {
   const size_t n = L.n, p = L.p, mC = conic_mC(L), N = n + p + mC, dmax = conic_dmax(L);
   size_t w = mC * n + p * n + n + p + mC;
-  w += 4 * n + 4 * p + 20 * mC + 4 * N + N * odd_stride(int(N)) + kColbufWords + kConicSlots;
+  w += 4 * n + 4 * p + 20 * mC + 4 * N + N * odd_stride(int(N)) + colbuf_words(tw) + kConicSlots;
   for (int k = 0; k < L.npsd; ++k) {
     const size_t d = L.psd_side[k];
     w += 5 * d * d + d;
   }
-  w += kWarps * (5 * dmax * dmax + dmax);
+  w += size_t(tw) * (5 * dmax * dmax + dmax);
   return w;
 }
 
-__host__ __device__ inline size_t conic_smem_bytes(const Layout& L, int itemsize) {
-  return conic_int_bytes(L) + conic_words(L) * size_t(itemsize);
+__host__ __device__ inline size_t conic_smem_bytes(const Layout& L, int itemsize, int tw) {
+  return conic_int_bytes(L) + conic_words(L, tw) * size_t(itemsize);
 }
 
-template <typename T>
+template <typename T, int TW>
 struct Conic {
   using Real = T;
+  using Team = dk::Team<TW>;
   int n, p, mC, N, ld, nb, dmax, passes;
   T reg, eps, nu_deg;
   const int *bkind, *boff, *bdim, *bside, *bdata;  // per cone block: nonneg (if any), socs, psds
@@ -108,7 +140,7 @@ struct Conic {
   T *L;                                            // N x ld, the LDL' factor (strict lower triangle)
   T *colbuf, *sc;
   T *pdata;  // per psd block: P = W_nt, Rb = W_nt^1/2, Rbi = W_nt^-1/2, Q (eigenvectors of lam), lam^-1/2 (d x d each), w (d)
-  T *ws;     // per warp: 5 dmax^2 + dmax words of workspace
+  T *ws;     // per warp of the team: 5 dmax^2 + dmax words of workspace
 };
 
 // svec index of (r, c), r <= c: the upper triangle column by column
@@ -247,23 +279,23 @@ __device__ __noinline__ void wsqrt_pair(T* X, T* V, T* w, T* Xh, T* Xih, int d, 
   if (Xih) wvdv(V, w, true, Xih, d, lane);
 }
 
-// ---- the block's phases (called by every thread; each ends in __syncthreads) --
+// ---- the team's phases (called by every thread; each ends in the team's barrier)
 
-template <typename T>
-__device__ inline T* psd_data(const Conic<T>& c, int b) { return c.pdata + c.bdata[b]; }
-template <typename T>
-__device__ inline T* warp_ws(const Conic<T>& c, int warp) {
+template <typename T, int TW>
+__device__ inline T* psd_data(const Conic<T, TW>& c, int b) { return c.pdata + c.bdata[b]; }
+template <typename T, int TW>
+__device__ inline T* warp_ws(const Conic<T, TW>& c, int warp) {
   return c.ws + warp * (5 * c.dmax * c.dmax + c.dmax);
 }
 
 // NT scaling of the pair (s, y): w (nonneg rows, in sw), v (sw) and wb (swb)
 // per soc row with eta per soc block (seta), and W_nt with its square-root
 // pair per psd block
-template <typename T>
-__device__ __noinline__ void nt_scaling(const Conic<T>& c, const T* __restrict__ s, const T* __restrict__ y) {
+template <typename T, int TW>
+__device__ __noinline__ void nt_scaling(const Conic<T, TW>& c, const T* __restrict__ s, const T* __restrict__ y) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const T eps = c.eps;
-  for (int b = warp; b < c.nb; b += kWarps) {
+  for (int b = warp; b < c.nb; b += TW) {
     const int off = c.boff[b], dim = c.bdim[b];
     if (c.bkind[b] == kNonneg) {
       for (int i = lane; i < dim; i += 32) c.sw[off + i] = sqrt(s[off + i] / y[off + i]);
@@ -308,14 +340,14 @@ __device__ __noinline__ void nt_scaling(const Conic<T>& c, const T* __restrict__
       wsqrt_pair(M1, M2, wv, P + d2, P + 2 * d2, d, eps, lane);
     }
   }
-  __syncthreads();
+  Team<TW>::sync();
 }
 
 // out <- W u (inv = false) or W^-1 u (inv = true), blockwise; out distinct from u
-template <typename T>
-__device__ __noinline__ void w_apply(const Conic<T>& c, const T* __restrict__ u, T* __restrict__ out, bool inv) {
+template <typename T, int TW>
+__device__ __noinline__ void w_apply(const Conic<T, TW>& c, const T* __restrict__ u, T* __restrict__ out, bool inv) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int b = warp; b < c.nb; b += kWarps) {
+  for (int b = warp; b < c.nb; b += TW) {
     const int off = c.boff[b], dim = c.bdim[b];
     if (c.bkind[b] == kNonneg) {
       for (int i = lane; i < dim; i += 32) out[off + i] = inv ? u[off + i] / c.sw[off + i] : u[off + i] * c.sw[off + i];
@@ -351,14 +383,14 @@ __device__ __noinline__ void w_apply(const Conic<T>& c, const T* __restrict__ u,
       wsvec(M2, d, out + off, lane);
     }
   }
-  __syncthreads();
+  Team<TW>::sync();
 }
 
 // out <- u o v (Jordan product); out distinct from u and v
-template <typename T>
-__device__ __noinline__ void jmul(const Conic<T>& c, const T* __restrict__ u, const T* __restrict__ v, T* __restrict__ out) {
+template <typename T, int TW>
+__device__ __noinline__ void jmul(const Conic<T, TW>& c, const T* __restrict__ u, const T* __restrict__ v, T* __restrict__ out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int b = warp; b < c.nb; b += kWarps) {
+  for (int b = warp; b < c.nb; b += TW) {
     const int off = c.boff[b], dim = c.bdim[b];
     if (c.bkind[b] == kNonneg) {
       for (int i = lane; i < dim; i += 32) out[off + i] = u[off + i] * v[off + i];
@@ -379,16 +411,16 @@ __device__ __noinline__ void jmul(const Conic<T>& c, const T* __restrict__ u, co
       wsvec(M2, d, out + off, lane);
     }
   }
-  __syncthreads();
+  Team<TW>::sync();
 }
 
 // out <- g with lam o g = dd (arrow inverse per soc block, a Lyapunov solve in
 // the stored eigenbasis of lam per psd block)
-template <typename T>
-__device__ __noinline__ void jsolve(const Conic<T>& c, const T* __restrict__ lam, const T* __restrict__ dd, T* __restrict__ out) {
+template <typename T, int TW>
+__device__ __noinline__ void jsolve(const Conic<T, TW>& c, const T* __restrict__ lam, const T* __restrict__ dd, T* __restrict__ out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const T eps = c.eps;
-  for (int b = warp; b < c.nb; b += kWarps) {
+  for (int b = warp; b < c.nb; b += TW) {
     const int off = c.boff[b], dim = c.bdim[b];
     if (c.bkind[b] == kNonneg) {
       for (int i = lane; i < dim; i += 32) out[off + i] = dd[off + i] / lam[off + i];
@@ -430,17 +462,17 @@ __device__ __noinline__ void jsolve(const Conic<T>& c, const T* __restrict__ lam
       wsvec(M0, d, out + off, lane);
     }
   }
-  __syncthreads();
+  Team<TW>::sync();
 }
 
 // largest alpha in (0, 1] keeping lam + alpha du in the cone (the psd blocks
 // through the stored lam^-1/2); the same value in every thread
-template <typename T>
-__device__ __noinline__ T max_step(const Conic<T>& c, const T* __restrict__ u, const T* __restrict__ du) {
+template <typename T, int TW>
+__device__ __noinline__ T max_step(const Conic<T, TW>& c, const T* __restrict__ u, const T* __restrict__ du) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const T big = T(3.4e38);
   T amax = big;
-  for (int b = warp; b < c.nb; b += kWarps) {
+  for (int b = warp; b < c.nb; b += TW) {
     const int off = c.boff[b], dim = c.bdim[b];
     if (c.bkind[b] == kNonneg) {
       T a = big;
@@ -486,16 +518,16 @@ __device__ __noinline__ T max_step(const Conic<T>& c, const T* __restrict__ u, c
     }
   }
   if (lane == 0) c.sc[sStep + warp] = amax;
-  __syncthreads();
+  Team<TW>::sync();
   T a = c.sc[sStep];
-  for (int k = 1; k < kWarps; ++k) a = nan_min(a, c.sc[sStep + k]);
-  __syncthreads();  // every thread has read the partial minima
+  for (int k = 1; k < TW; ++k) a = nan_min(a, c.sc[sStep + k]);
+  Team<TW>::sync();  // every thread has read the partial minima
   return nan_min(T(1), a);
 }
 
 // entry (i, k) of the block-diagonal W^2 (0 across blocks)
-template <typename T>
-__device__ T w2_entry(const Conic<T>& c, int i, int k) {
+template <typename T, int TW>
+__device__ T w2_entry(const Conic<T, TW>& c, int i, int k) {
   const int b = c.rblk[i];
   if (c.rblk[k] != b) return T(0);
   if (c.bkind[b] == kNonneg) return i == k ? c.sw[i] * c.sw[i] : T(0);
@@ -516,8 +548,8 @@ __device__ T w2_entry(const Conic<T>& c, int i, int k) {
 }
 
 // entry (i, k) of K = [[-W^2, AC, 0], [AC', reg I, AE'], [0, AE, -reg I]]
-template <typename T>
-__device__ T k_entry(const Conic<T>& c, int i, int k) {
+template <typename T, int TW>
+__device__ T k_entry(const Conic<T, TW>& c, int i, int k) {
   const int mC = c.mC, n = c.n;
   if (i < mC) {
     if (k < mC) return -w2_entry(c, i, k);
@@ -536,10 +568,10 @@ __device__ T k_entry(const Conic<T>& c, int i, int k) {
 }
 
 // res <- rhs - K sol, one thread per row, from the blocks of K
-template <typename T>
-__device__ __noinline__ void k_residual(const Conic<T>& c) {
+template <typename T, int TW>
+__device__ __noinline__ void k_residual(const Conic<T, TW>& c) {
   const int mC = c.mC, n = c.n, p = c.p;
-  for (int i = threadIdx.x; i < c.N; i += kThreads) {
+  for (int i = threadIdx.x; i < c.N; i += 32 * TW) {
     T acc = T(0);
     if (i < mC) {
       const int b = c.rblk[i], off = c.boff[b], dim = c.bdim[b];
@@ -557,49 +589,49 @@ __device__ __noinline__ void k_residual(const Conic<T>& c) {
     }
     c.res[i] = c.rhs[i] - acc;
   }
-  __syncthreads();
+  Team<TW>::sync();
 }
 
 // Newton direction for the scaled complementarity target g (ready): rhs =
 // [-rpC + W g, -rd, -rpE], LDL' solve with c.passes refinement passes against
 // K, then ds = -W (g + W dyC)
-template <typename T>
-__device__ __noinline__ void solve_dir(const Conic<T>& c, const T* g, T* dx, T* dyE, T* dyC, T* ds) {
+template <typename T, int TW>
+__device__ __noinline__ void solve_dir(const Conic<T, TW>& c, const T* g, T* dx, T* dyE, T* dyC, T* ds) {
   const int mC = c.mC, n = c.n, N = c.N;
   w_apply(c, g, c.t1, false);
-  for (int i = threadIdx.x; i < N; i += kThreads) {
+  for (int i = threadIdx.x; i < N; i += 32 * TW) {
     const T v = i < mC ? -c.rpC[i] + c.t1[i] : (i < mC + n ? -c.rd[i - mC] : -c.rpE[i - mC - n]);
     c.rhs[i] = v;
     c.sol[i] = v;
   }
-  __syncthreads();
+  Team<TW>::sync();
   ldl_solve_warp0(c, c.sol);
   for (int pass = 0; pass < c.passes; ++pass) {
     k_residual(c);
     ldl_solve_warp0(c, c.res);
-    for (int i = threadIdx.x; i < N; i += kThreads) c.sol[i] += c.res[i];
-    __syncthreads();
+    for (int i = threadIdx.x; i < N; i += 32 * TW) c.sol[i] += c.res[i];
+    Team<TW>::sync();
   }
-  for (int i = threadIdx.x; i < N; i += kThreads) {
+  for (int i = threadIdx.x; i < N; i += 32 * TW) {
     const T v = c.sol[i];
     if (i < mC) dyC[i] = v;
     else if (i < mC + n) dx[i - mC] = v;
     else dyE[i - mC - n] = v;
   }
-  __syncthreads();
+  Team<TW>::sync();
   w_apply(c, dyC, c.t1, false);
-  for (int i = threadIdx.x; i < mC; i += kThreads) c.t2[i] = g[i] + c.t1[i];
-  __syncthreads();
+  for (int i = threadIdx.x; i < mC; i += 32 * TW) c.t2[i] = g[i] + c.t1[i];
+  Team<TW>::sync();
   w_apply(c, c.t2, c.t1, false);
-  for (int i = threadIdx.x; i < mC; i += kThreads) ds[i] = -c.t1[i];
-  __syncthreads();
+  for (int i = threadIdx.x; i < mC; i += 32 * TW) ds[i] = -c.t1[i];
+  Team<TW>::sync();
 }
 
 // one eigendecomposition per psd block of lam: Q, w and lam^-1/2 into the block's data
-template <typename T>
-__device__ __noinline__ void lam_eigs(const Conic<T>& c) {
+template <typename T, int TW>
+__device__ __noinline__ void lam_eigs(const Conic<T, TW>& c) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int b = warp; b < c.nb; b += kWarps) {
+  for (int b = warp; b < c.nb; b += TW) {
     if (c.bkind[b] != kPsd) continue;
     const int d = c.bside[b], d2 = d * d, dm2 = c.dmax * c.dmax;
     T* P = psd_data(c, b);
@@ -615,20 +647,32 @@ __device__ __noinline__ void lam_eigs(const Conic<T>& c) {
     __syncwarp();
     wvdv(Q, wv, true, Lisq, d, lane);
   }
-  __syncthreads();
+  Team<TW>::sync();
 }
 
-// four resident blocks' worth of registers is too few for the tiled
-// factorisation at 128 rows in f64, so two blocks per SM is the floor
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+// Resident teams per SM that the registers must allow: as many as shared
+// memory holds at the SOCP (f32: 9 KB an instance) and SDP layouts for the
+// teams of one and two warps (a thread gets at most 80 registers in f32, 168
+// in f64); the eight-warp team keeps two blocks per SM (128 registers a
+// thread), which its tiled factorisation at 128 rows in f64 needs.
+// DK_CONIC_F32_BLOCKS sets the f32 count for an experiment
+// (tools/k6_registers.py); the package's build keeps 24.
+#ifndef DK_CONIC_F32_BLOCKS
+#define DK_CONIC_F32_BLOCKS 24
+#endif
+template <typename T, int TW>
+constexpr int conic_min_blocks() { return TW == 8 ? 2 : (sizeof(T) == 4 ? DK_CONIC_F32_BLOCKS : 12) / TW; }
+
+template <typename T, int TW>
+__global__ void __launch_bounds__(32 * TW, conic_min_blocks<T, TW>())
 conic_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __restrict__ bCg,
              const T* __restrict__ AEg, const T* __restrict__ ACg, T* __restrict__ x_out,
              T* __restrict__ yE_out, T* __restrict__ yC_out, T* __restrict__ s_out, int* __restrict__ it_out,
              T* __restrict__ pres_out, T* __restrict__ dres_out, const Layout lay, int iters, T tol, T reg,
              T eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ Conic<T> cs;
+  __shared__ Conic<T, TW> cs;
+  constexpr int kTeamThreads = 32 * TW;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t inst = blockIdx.x;
   const int n = lay.n, p = lay.p, l = lay.l, mC = conic_mC(lay), N = n + p + mC;
@@ -636,9 +680,13 @@ conic_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __res
   int* ints = reinterpret_cast<int*>(smem_raw);
   T* w = reinterpret_cast<T*>(smem_raw + conic_int_bytes(lay));
   auto take = [&w](size_t count) { T* r = w; w += count; return r; };
+  DK_PROF_START();
+#ifdef DK_PROFILE
+  const long long tstart_ = t0_;
+#endif
 
   if (tid == 0) {
-    Conic<T>& c = cs;
+    Conic<T, TW>& c = cs;
     c.n = n; c.p = p; c.mC = mC; c.N = N; c.ld = odd_stride(N); c.nb = nb; c.dmax = dmax;
     c.passes = lay.npsd ? 2 : 1;
     c.reg = reg; c.eps = eps;
@@ -669,18 +717,18 @@ conic_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __res
     c.sw = take(mC); c.swb = take(mC); c.seta = take(mC);
     c.rhs = take(N); c.sol = take(N); c.res = take(N); c.dvec = take(N);
     c.L = take(size_t(N) * c.ld);
-    c.colbuf = take(kColbufWords); c.sc = take(kConicSlots);
+    c.colbuf = take(colbuf_words(TW)); c.sc = take(kConicSlots);
     c.pdata = take(pdat);
-    c.ws = take(size_t(kWarps) * (5 * dmax * dmax + dmax));
+    c.ws = take(size_t(TW) * (5 * dmax * dmax + dmax));
   }
-  __syncthreads();
-  const Conic<T>& c = cs;
+  Team<TW>::sync();
+  const Conic<T, TW>& c = cs;
 
-  for (int i = tid; i < mC * n; i += kThreads) c.AC[i] = ACg[inst * mC * n + i];
-  for (int i = tid; i < p * n; i += kThreads) c.AE[i] = AEg[inst * p * n + i];
-  for (int j = tid; j < n; j += kThreads) c.c[j] = cg[inst * n + j];
-  for (int k = tid; k < p; k += kThreads) c.bE[k] = bEg[inst * p + k];
-  for (int i = tid; i < mC; i += kThreads) {
+  for (int i = tid; i < mC * n; i += kTeamThreads) c.AC[i] = ACg[inst * mC * n + i];
+  for (int i = tid; i < p * n; i += kTeamThreads) c.AE[i] = AEg[inst * p * n + i];
+  for (int j = tid; j < n; j += kTeamThreads) c.c[j] = cg[inst * n + j];
+  for (int k = tid; k < p; k += kTeamThreads) c.bE[k] = bEg[inst * p + k];
+  for (int i = tid; i < mC; i += kTeamThreads) {
     c.bC[i] = bCg[inst * mC + i];
     const int b = c.rblk[i], loc = c.rloc[i];
     T e = T(0);
@@ -689,27 +737,27 @@ conic_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __res
     else { int r, cc; tri_rc(loc, r, cc); e = r == cc ? T(1) : T(0); }
     c.e[i] = e;
   }
-  __syncthreads();
+  Team<TW>::sync();
 
   // ---- init: identity scaling, one solve from the zero iterate, then a
   // per-block shift of s0 = bC - AC x into the interior; yC = e -------------
   nt_scaling(c, c.e, c.e);
   factor(c);
-  for (int j = tid; j < n; j += kThreads) c.rd[j] = c.c[j];
-  for (int k = tid; k < p; k += kThreads) c.rpE[k] = -c.bE[k];
-  for (int i = tid; i < mC; i += kThreads) { c.rpC[i] = -c.bC[i]; c.g[i] = -c.e[i]; }
-  __syncthreads();
+  for (int j = tid; j < n; j += kTeamThreads) c.rd[j] = c.c[j];
+  for (int k = tid; k < p; k += kTeamThreads) c.rpE[k] = -c.bE[k];
+  for (int i = tid; i < mC; i += kTeamThreads) { c.rpC[i] = -c.bC[i]; c.g[i] = -c.e[i]; }
+  Team<TW>::sync();
   solve_dir(c, c.g, c.dx, c.dyE, c.dyC, c.ds);
-  for (int j = tid; j < n; j += kThreads) c.x[j] = c.dx[j];
-  for (int k = tid; k < p; k += kThreads) c.yE[k] = c.dyE[k];
-  __syncthreads();
-  for (int i = tid; i < mC; i += kThreads) {
+  for (int j = tid; j < n; j += kTeamThreads) c.x[j] = c.dx[j];
+  for (int k = tid; k < p; k += kTeamThreads) c.yE[k] = c.dyE[k];
+  Team<TW>::sync();
+  for (int i = tid; i < mC; i += kTeamThreads) {
     T a = T(0);
     for (int j = 0; j < n; ++j) a += c.AC[i * n + j] * c.x[j];
     c.s[i] = c.bC[i] - a;
   }
-  __syncthreads();
-  for (int b = warp; b < nb; b += kWarps) {
+  Team<TW>::sync();
+  for (int b = warp; b < nb; b += TW) {
     const int off = c.boff[b], dim = c.bdim[b];
     T* sb = c.s + off;
     if (c.bkind[b] == kNonneg) {
@@ -737,24 +785,26 @@ conic_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __res
     }
     __syncwarp();
   }
-  __syncthreads();
-  for (int i = tid; i < mC; i += kThreads) { c.yC[i] = c.e[i]; c.yCb[i] = c.e[i]; c.sb[i] = c.s[i]; }
-  for (int j = tid; j < n; j += kThreads) c.xb[j] = c.x[j];
-  for (int k = tid; k < p; k += kThreads) c.yEb[k] = c.yE[k];
-  __syncthreads();
+  Team<TW>::sync();
+  for (int i = tid; i < mC; i += kTeamThreads) { c.yC[i] = c.e[i]; c.yCb[i] = c.e[i]; c.sb[i] = c.s[i]; }
+  for (int j = tid; j < n; j += kTeamThreads) c.xb[j] = c.x[j];
+  for (int k = tid; k < p; k += kTeamThreads) c.yEb[k] = c.yE[k];
+  Team<TW>::sync();
+  DK_PROF(kProfInit);
 
   // ---- main loop: every scalar below is the same in every thread ----------
   T errb = T(1e30), mu_prev = T(1e30), err_prev = T(1e30);
   int stall = 0, itdone = -1, own = iters, it = 0;
   for (; it < iters; ++it) {
     const Metrics<T> m = metrics(c);
+    DK_PROF(kProfMetrics);
     const bool done = m.pres < tol && m.dres < tol && m.gaprel < tol;
     const T err = nan_max(nan_max(m.pres, m.dres), m.gaprel);
     if (err < errb) {  // best-iterate tracking
       errb = err;
-      for (int j = tid; j < n; j += kThreads) c.xb[j] = c.x[j];
-      for (int k = tid; k < p; k += kThreads) c.yEb[k] = c.yE[k];
-      for (int i = tid; i < mC; i += kThreads) { c.yCb[i] = c.yC[i]; c.sb[i] = c.s[i]; }
+      for (int j = tid; j < n; j += kTeamThreads) c.xb[j] = c.x[j];
+      for (int k = tid; k < p; k += kTeamThreads) c.yEb[k] = c.yE[k];
+      for (int i = tid; i < mC; i += kTeamThreads) { c.yCb[i] = c.yC[i]; c.sb[i] = c.s[i]; }
     }
     // stall exit: five consecutive iterations without 2% progress on mu and err
     stall = (m.mu > T(0.98) * mu_prev && err > T(0.98) * err_prev) ? stall + 1 : 0;
@@ -766,12 +816,17 @@ conic_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __res
     }
 
     nt_scaling(c, c.s, c.yC);
+    DK_PROF(kProfNt);
     factor(c);
+    DK_PROF(kProfFactor);
     w_apply(c, c.s, c.lam, true);
+    DK_PROF(kProfWApply);
     lam_eigs(c);
+    DK_PROF(kProfLamEigs);
 
     // predictor: g = lam
     solve_dir(c, c.lam, c.dx, c.dyE, c.dyCa, c.dsa);
+    DK_PROF(kProfSolvePred);
     w_apply(c, c.dsa, c.dsa_s, true);
     w_apply(c, c.dyCa, c.dya_s, false);
     const T a_p = max_step(c, c.lam, c.dsa_s);
@@ -782,55 +837,60 @@ conic_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __res
       a = warp_sum(a);
       if (lane == 0) c.sc[sMuAff] = a / c.nu_deg;
     }
-    __syncthreads();
+    Team<TW>::sync();
     const T ratio = c.sc[sMuAff] / nan_max(m.mu, T(1e-30));
     const T sigma = nan_min(nan_max(ratio * ratio * ratio, T(0)), T(1));
+    DK_PROF(kProfStepPred);
 
     // corrector with the Mehrotra second-order term in the scaled variables
     jmul(c, c.lam, c.lam, c.t1);
     jmul(c, c.dsa_s, c.dya_s, c.t2);
-    for (int i = tid; i < mC; i += kThreads) c.comp[i] = c.t1[i] + c.t2[i] - (sigma * m.mu) * c.e[i];
-    __syncthreads();
+    for (int i = tid; i < mC; i += kTeamThreads) c.comp[i] = c.t1[i] + c.t2[i] - (sigma * m.mu) * c.e[i];
+    Team<TW>::sync();
     jsolve(c, c.lam, c.comp, c.g);
+    DK_PROF(kProfJordan);
     solve_dir(c, c.g, c.dx, c.dyE, c.dyC, c.ds);
+    DK_PROF(kProfSolveCorr);
     w_apply(c, c.ds, c.dsa_s, true);
     const T a1 = max_step(c, c.lam, c.dsa_s);
     w_apply(c, c.dyC, c.dya_s, false);
     const T a2 = max_step(c, c.lam, c.dya_s);
     T alpha = nan_min(T(0.99) * nan_min(a1, a2), T(1));
+    DK_PROF(kProfStepCorr);
 
-    const bool bad = any_nonfinite(c.dx, n, c.dyC, mC, c.ds, mC, c.dyE, p) || !isfinite(alpha);
+    const bool bad = any_nonfinite<Team<TW>>(c.dx, n, c.dyC, mC, c.ds, mC, c.dyE, p) || !isfinite(alpha);
     if (bad) {
       own = it + 1;
       break;
     }
     alpha = nan_max(alpha, T(0));
-    for (int j = tid; j < n; j += kThreads) c.x[j] += alpha * c.dx[j];
-    for (int k = tid; k < p; k += kThreads) c.yE[k] += alpha * c.dyE[k];
-    for (int i = tid; i < mC; i += kThreads) { c.yC[i] += alpha * c.dyC[i]; c.s[i] += alpha * c.ds[i]; }
-    __syncthreads();
+    for (int j = tid; j < n; j += kTeamThreads) c.x[j] += alpha * c.dx[j];
+    for (int k = tid; k < p; k += kTeamThreads) c.yE[k] += alpha * c.dyE[k];
+    for (int i = tid; i < mC; i += kTeamThreads) { c.yC[i] += alpha * c.dyC[i]; c.s[i] += alpha * c.ds[i]; }
+    Team<TW>::sync();
+    DK_PROF(kProfUpdate);
     mu_prev = m.mu;
     err_prev = err;
   }
-  __syncthreads();
+  Team<TW>::sync();
 
   // ---- the exit state never got a best-update inside the loop: score it ----
   {
     const Metrics<T> m = metrics(c);
     const T err = nan_max(nan_max(m.pres, m.dres), m.gaprel);
-    const bool fin = !any_nonfinite(c.x, n, c.yC, mC, c.x, 0, c.x, 0);
+    const bool fin = !any_nonfinite<Team<TW>>(c.x, n, c.yC, mC, c.x, 0, c.x, 0);
     if (!(err < errb && fin)) {
-      for (int j = tid; j < n; j += kThreads) c.x[j] = c.xb[j];
-      for (int k = tid; k < p; k += kThreads) c.yE[k] = c.yEb[k];
-      for (int i = tid; i < mC; i += kThreads) { c.yC[i] = c.yCb[i]; c.s[i] = c.sb[i]; }
+      for (int j = tid; j < n; j += kTeamThreads) c.x[j] = c.xb[j];
+      for (int k = tid; k < p; k += kTeamThreads) c.yE[k] = c.yEb[k];
+      for (int i = tid; i < mC; i += kTeamThreads) { c.yC[i] = c.yCb[i]; c.s[i] = c.sb[i]; }
     }
-    __syncthreads();
+    Team<TW>::sync();
   }
   // the metrics OF THE RETURNED STATE
   const Metrics<T> m = metrics(c);
-  for (int j = tid; j < n; j += kThreads) x_out[inst * n + j] = c.x[j];
-  for (int k = tid; k < p; k += kThreads) yE_out[inst * p + k] = c.yE[k];
-  for (int i = tid; i < mC; i += kThreads) {
+  for (int j = tid; j < n; j += kTeamThreads) x_out[inst * n + j] = c.x[j];
+  for (int k = tid; k < p; k += kTeamThreads) yE_out[inst * p + k] = c.yE[k];
+  for (int i = tid; i < mC; i += kTeamThreads) {
     yC_out[inst * mC + i] = c.yC[i];
     s_out[inst * mC + i] = c.s[i];
   }
@@ -839,6 +899,13 @@ conic_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __res
     pres_out[inst] = m.pres;
     dres_out[inst] = m.dres;
   }
+  DK_PROF(kProfExit);
+#ifdef DK_PROFILE
+  if (tid == 0) {
+    DK_PROF_ADD(kProfTotal, clock64() - tstart_);
+    DK_PROF_ADD(kProfBodies, it);
+  }
+#endif
 }
 
 inline bool make_layout(Layout& lay, int n, int p, int l, int nsoc, const int* soc_dims, int npsd,
@@ -856,55 +923,142 @@ inline bool make_layout(Layout& lay, int n, int p, int l, int nsoc, const int* s
   return true;
 }
 
+// the team sizes the kernel is built for (a team of four warps takes the same
+// rows as one of two and was slower at every layout timed: PERF.md)
+constexpr int kTeams[] = {1, 2, 8};
+
+// Room for the kernel's static shared memory (its pointer table Conic<T, TW>),
+// mirrored by ops/cuda/conic_pdip.py
+constexpr size_t kStaticSmem = 1024;
+static_assert(sizeof(Conic<double, 8>) <= kStaticSmem, "the pointer table outgrew its room");
+
+// Whether a team of tw warps takes the layout: K's rows in the team's register
+// tiles, its working set in one block's shared memory
+inline bool conic_team_takes(const Layout& lay, int itemsize, int tw) {
+  const int N = lay.n + lay.p + conic_mC(lay);
+  return (tw == 1 || tw == 2 || tw == 8) && N <= tile_max_n(tw) &&
+         conic_smem_bytes(lay, itemsize, tw) + kStaticSmem <= kMaxSmemBytes;
+}
+
+// The launch rule (mirrored by ops/cuda/conic_pdip.py::team_for): the smallest
+// team that takes the layout; 0 if none does
+inline int conic_team(const Layout& lay, int itemsize) {
+  for (int tw : kTeams)
+    if (conic_team_takes(lay, itemsize, tw)) return tw;
+  return 0;
+}
+
+// f(std::integral_constant<int, TW>) for tw in {1, 2, 8}
+template <class F>
+int with_team(int tw, F&& f) {
+  switch (tw) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// the instantiation's shared-memory attributes: room for smem bytes, and the
+// SM's split between L1 and shared memory all to shared memory, so that as many
+// teams are resident as their working sets allow
+template <typename T, int TW>
+cudaError_t conic_attributes(size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(conic_kernel<T, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(conic_kernel<T, TW>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              int(cudaSharedmemCarveoutMaxShared));
+}
+
 template <typename T>
 int launch_conic(const void* c, const void* bE, const void* bC, const void* AE, const void* AC, void* x,
                  void* yE, void* yC, void* s, void* it, void* pres, void* dres, int B, int n, int p, int l,
                  int nsoc, const int* soc_dims, int npsd, const int* psd_sides, int iters, double tol,
-                 double reg, double eps, void* stream) {
+                 double reg, double eps, int team, void* stream) {
   Layout lay;
   if (!make_layout(lay, n, p, l, nsoc, soc_dims, npsd, psd_sides)) return int(cudaErrorInvalidValue);
-  const int mC = conic_mC(lay);
-  const size_t smem = conic_smem_bytes(lay, sizeof(T));
-  if (B <= 0 || n <= 0 || p < 0 || l < 0 || mC <= 0 || n + p + mC > kTileGrid * kMaxTileRows ||
-      smem + sizeof(Conic<T>) > kMaxSmemBytes)
-    return int(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(conic_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
-  conic_kernel<T><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(c), static_cast<const T*>(bE), static_cast<const T*>(bC),
-      static_cast<const T*>(AE), static_cast<const T*>(AC), static_cast<T*>(x), static_cast<T*>(yE),
-      static_cast<T*>(yC), static_cast<T*>(s), static_cast<int*>(it), static_cast<T*>(pres),
-      static_cast<T*>(dres), lay, iters, T(tol), T(reg), T(eps));
-  return int(cudaGetLastError());
+  if (B <= 0 || n <= 0 || p < 0 || l < 0 || conic_mC(lay) <= 0) return int(cudaErrorInvalidValue);
+  const int tw = team ? team : conic_team(lay, int(sizeof(T)));
+  if (!conic_team_takes(lay, int(sizeof(T)), tw)) return int(cudaErrorInvalidValue);  // refused: no other team
+  return with_team(tw, [&](auto tc) {
+    constexpr int TW = decltype(tc)::value;
+    const size_t smem = conic_smem_bytes(lay, int(sizeof(T)), TW);
+    cudaError_t e = conic_attributes<T, TW>(smem);
+    if (e != cudaSuccess) return int(e);
+    conic_kernel<T, TW><<<B, 32 * TW, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(c), static_cast<const T*>(bE), static_cast<const T*>(bC),
+        static_cast<const T*>(AE), static_cast<const T*>(AC), static_cast<T*>(x), static_cast<T*>(yE),
+        static_cast<T*>(yC), static_cast<T*>(s), static_cast<int*>(it), static_cast<T*>(pres),
+        static_cast<T*>(dres), lay, iters, T(tol), T(reg), T(eps));
+    return int(cudaGetLastError());
+  });
+}
+
+// teams of tw warps resident on one SM for the layout (registers, shared memory
+// and the SM's block and warp limits together); a negative CUDA error code on failure
+template <typename T>
+int conic_blocks_per_sm(const Layout& lay, int tw) {
+  if (!conic_team_takes(lay, int(sizeof(T)), tw)) return -int(cudaErrorInvalidValue);
+  return with_team(tw, [&](auto tc) {
+    constexpr int TW = decltype(tc)::value;
+    const size_t smem = conic_smem_bytes(lay, int(sizeof(T)), TW);
+    cudaError_t e = conic_attributes<T, TW>(smem);
+    int blocks = 0;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, conic_kernel<T, TW>, 32 * TW, smem);
+    return e == cudaSuccess ? blocks : -int(e);
+  });
 }
 
 }  // namespace dk
 
 extern "C" {
 
+#ifdef DK_PROFILE
+int conic_pdip_prof_read(unsigned long long* out) { return dk::prof_read(out); }
+int conic_pdip_prof_zero() { return dk::prof_zero(); }
+#endif
+
 const char* dk_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
-// Dynamic shared memory the kernel needs, in bytes (itemsize 4 or 8); -1 for a layout it refuses.
+// Dynamic shared memory a team of `team` warps needs, in bytes (itemsize 4 or 8); -1 for a layout it refuses.
 long long conic_pdip_smem_bytes(int n, int p, int l, int nsoc, const int* soc_dims, int npsd,
-                                const int* psd_sides, int itemsize) {
+                                const int* psd_sides, int itemsize, int team) {
   dk::Layout lay;
   if (!dk::make_layout(lay, n, p, l, nsoc, soc_dims, npsd, psd_sides)) return -1;
-  return (long long)dk::conic_smem_bytes(lay, itemsize);
+  return (long long)dk::conic_smem_bytes(lay, itemsize, team);
 }
 
+// The team the launch rule picks for the layout (1, 2 or 8 warps); 0 where none takes it, -1 for a bad layout.
+int conic_pdip_team(int n, int p, int l, int nsoc, const int* soc_dims, int npsd, const int* psd_sides,
+                    int itemsize) {
+  dk::Layout lay;
+  if (!dk::make_layout(lay, n, p, l, nsoc, soc_dims, npsd, psd_sides)) return -1;
+  return dk::conic_team(lay, itemsize);
+}
+
+// Teams of `team` warps resident per SM for the layout; a negative CUDA error code where it cannot launch.
+int conic_pdip_blocks_per_sm(int n, int p, int l, int nsoc, const int* soc_dims, int npsd, const int* psd_sides,
+                             int itemsize, int team) {
+  dk::Layout lay;
+  if (!dk::make_layout(lay, n, p, l, nsoc, soc_dims, npsd, psd_sides)) return -int(cudaErrorInvalidValue);
+  return itemsize == 4 ? dk::conic_blocks_per_sm<float>(lay, team) : dk::conic_blocks_per_sm<double>(lay, team);
+}
+
+// team: 1, 2 or 8 warps per instance, or 0 for the launch rule's choice; a team that does not take the
+// layout is refused (cudaErrorInvalidValue), never replaced by another.
 int conic_pdip_f32(const void* c, const void* bE, const void* bC, const void* AE, const void* AC, void* x,
                    void* yE, void* yC, void* s, void* it, void* pres, void* dres, int B, int n, int p, int l,
                    int nsoc, const int* soc_dims, int npsd, const int* psd_sides, int iters, double tol,
-                   double reg, double eps, void* stream) {
+                   double reg, double eps, int team, void* stream) {
   return dk::launch_conic<float>(c, bE, bC, AE, AC, x, yE, yC, s, it, pres, dres, B, n, p, l, nsoc, soc_dims,
-                                 npsd, psd_sides, iters, tol, reg, eps, stream);
+                                 npsd, psd_sides, iters, tol, reg, eps, team, stream);
 }
 int conic_pdip_f64(const void* c, const void* bE, const void* bC, const void* AE, const void* AC, void* x,
                    void* yE, void* yC, void* s, void* it, void* pres, void* dres, int B, int n, int p, int l,
                    int nsoc, const int* soc_dims, int npsd, const int* psd_sides, int iters, double tol,
-                   double reg, double eps, void* stream) {
+                   double reg, double eps, int team, void* stream) {
   return dk::launch_conic<double>(c, bE, bC, AE, AC, x, yE, yC, s, it, pres, dres, B, n, p, l, nsoc, soc_dims,
-                                  npsd, psd_sides, iters, tol, reg, eps, stream);
+                                  npsd, psd_sides, iters, tol, reg, eps, team, stream);
 }
 
 }  // extern "C"

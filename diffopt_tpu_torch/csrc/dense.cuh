@@ -1,7 +1,8 @@
 // Dense building blocks shared by the kernels of this package: Cholesky / LDL'
 // factorisations and triangular substitutions on a matrix held in shared
-// memory, plus warp reductions. One thread block (kThreads threads) works on
-// one problem instance.
+// memory, plus warp reductions. One thread block works on one problem
+// instance: kThreads threads in K1-K5 and K7; a team of 1, 2 or 8 warps in
+// K6 (Team below), whose factorisation runs on the team's own thread grid.
 //
 // Two scopes: a factorisation has O(n^2) independent updates per step and is
 // run by the whole block (one block barrier per step), with the matrix in
@@ -113,77 +114,140 @@ __device__ void factor_lower(T* __restrict__ M, int ld, int n, T* __restrict__ d
   }
 }
 
+// ---- teams -------------------------------------------------------------------
+//
+// A team of TW warps that is a whole thread block: its barrier is the block's,
+// or for one warp the cheaper __syncwarp (which orders the warp's shared-memory
+// accesses as __syncthreads does the block's).
+template <int TW>
+struct Team {
+  static_assert(TW == 1 || TW == 2 || TW == 8, "a team has 1, 2 or 8 warps");
+  static constexpr int kWarps = TW, kThreads = 32 * TW;
+  __device__ static void sync() {
+    if constexpr (TW == 1) __syncwarp();
+    else __syncthreads();
+  }
+  // p of any thread of the team, in every thread; a barrier
+  __device__ static bool any(bool p) {
+    if constexpr (TW == 1) return __any_sync(kFullMask, p) != 0;
+    else return __syncthreads_or(p) != 0;
+  }
+};
+
 // ---- register-tiled factorisation --------------------------------------------
 //
 // factor_lower spends ten instructions on addresses and predicates for every
 // multiply-add, and every operand comes from shared memory. Here the matrix
-// lives in REGISTERS for the whole factorisation: the block's 256 threads form
-// a 16 x 16 grid, thread (ty, tx) owns the entries (i, k) with i = ty + 16 a,
-// k = tx + 16 b (a cyclic map, so the trailing matrix stays spread over all
-// threads as it shrinks), a, b < kRows, of which it keeps the tiles b <= a.
-// Step j: the threads that own column j put it (unscaled) into a buffer in
-// shared memory, one block barrier, then every thread reads the pivot, its
-// kRows row entries and its kRows column entries and does kRows^2 / 2
-// multiply-adds without a branch (entries at or above row / column j enter
-// as zeros). The buffer is double-buffered, so one barrier per step is enough.
+// lives in REGISTERS for the whole factorisation: the team's threads form a
+// kY x kX grid (TileGrid below; 16 x 16 for the 256 threads of K1-K5 and K7),
+// thread (ty, tx) = (tid / kX, tid % kX) owns the entries (i, k) with
+// i = ty + kY a, k = tx + kX b (a cyclic map, so the trailing matrix stays
+// spread over all threads as it shrinks), a < RY, b < RX, kY RY = kX RX, of
+// which it keeps the tiles that reach the lower triangle (b <= a on a square
+// grid). Step j: the threads that own column j put it (unscaled) into a buffer
+// in shared memory, one team barrier, then every thread reads the pivot, its
+// RY row entries and its RX column entries and does about RY RX / 2
+// multiply-adds without a branch (entries at or above row / column j enter as
+// zeros). The buffer is double-buffered, so one barrier per step is enough.
 
-constexpr int kTileGrid = 16;
+// The thread grid of a team of TW warps, and the row counts its factorisation
+// is instantiated for (kCovers: the rows kX RX a tile set holds, smallest
+// first; the last is the most the team takes)
+template <int TW> struct TileGrid;
+template <> struct TileGrid<1> { static constexpr int kY = 4, kX = 8, kNumCovers = 2, kCovers[2] = {24, 40}; };
+template <> struct TileGrid<2> { static constexpr int kY = 8, kX = 8, kNumCovers = 2, kCovers[2] = {32, 64}; };
+template <> struct TileGrid<8> { static constexpr int kY = 16, kX = 16, kNumCovers = 3, kCovers[3] = {32, 64, 128}; };
+
+// rows of K a team of TW warps factorises in registers, and the words of its
+// double-buffered pivot column
+__host__ __device__ constexpr int tile_max_n(int tw) { return tw == 1 ? 40 : (tw == 8 ? 128 : 64); }
+__host__ __device__ constexpr int colbuf_words(int tw) { return 2 * tile_max_n(tw); }
+
+constexpr int kTileGrid = 16;  // the 256-thread grid of K1-K5 and K7
 static_assert(kTileGrid * kTileGrid == kThreads, "the tile map needs a 16 x 16 thread grid");
 constexpr int kMaxTileRows = 8;                                 // n <= 128
 constexpr int kColbufWords = 2 * kTileGrid * kMaxTileRows;      // double-buffered pivot column
+static_assert(kColbufWords == colbuf_words(8), "the 256-thread grid is the team of eight warps");
 
-// Calls f(std::integral_constant<int, kRows>) with the smallest kRows in
-// {2, 4, 8} that holds n rows; returns false (f not called) for n > 128.
-template <typename F>
-__device__ inline bool dispatch_tile(int n, F&& f) {
-  if (n <= 2 * kTileGrid) f(std::integral_constant<int, 2>{});
-  else if (n <= 4 * kTileGrid) f(std::integral_constant<int, 4>{});
-  else if (n <= 8 * kTileGrid) f(std::integral_constant<int, 8>{});
-  else return false;
-  return true;
+// Calls f(std::integral_constant<int, RX>) with the smallest of
+// TileGrid<TW>::kCovers that holds n rows (RX = cover / kX column tiles, RY =
+// RX kX / kY row tiles); returns false (f not called) past the last.
+template <int TW, int kIdx = 0, typename F>
+__device__ inline bool dispatch_grid(int n, F&& f) {
+  using G = TileGrid<TW>;
+  if constexpr (kIdx >= G::kNumCovers) {
+    return false;
+  } else {
+    constexpr int cover = G::kCovers[kIdx];
+    static_assert(cover % G::kX == 0 && cover % G::kY == 0, "a cover is whole tiles in both directions");
+    if (n <= cover) {
+      f(std::integral_constant<int, cover / G::kX>{});
+      return true;
+    }
+    return dispatch_grid<TW, kIdx + 1>(n, f);
+  }
 }
 
-// Eliminates the n x n symmetric matrix held in the tiles t (entries outside
-// n x n must be zero): on return diag[j] = pivot j and column j of t holds
-// L[i][j] * pivot j (LDL' with the column scaling left to the caller, as in
-// factor_lower; store_chol_tile turns it into a Cholesky factor). colbuf:
-// kColbufWords of shared memory. Called by every thread of the block; ends in
-// __syncthreads.
-template <typename T, int kRows>
-__device__ void factor_tile(T (&t)[kRows][kRows], int n, T* __restrict__ diag, T* __restrict__ colbuf) {
-  const int tx = threadIdx.x & (kTileGrid - 1), ty = threadIdx.x / kTileGrid;
+// The 256-thread form: kRows in {2, 4, 8} (n <= 128) for K1-K5 and K7.
+template <typename F>
+__device__ inline bool dispatch_tile(int n, F&& f) { return dispatch_grid<8>(n, f); }
+
+// Whether tile (a, b) of a kY x kX grid holds an entry on or below the diagonal
+template <int kY, int kX>
+__host__ __device__ constexpr bool tile_live(int a, int b) { return kY * a + kY - 1 >= kX * b; }
+
+// Eliminates the n x n symmetric matrix held in the tiles t of a team of TW
+// warps (entries outside n x n must be zero): on return diag[j] = pivot j and
+// column j of t holds L[i][j] * pivot j (LDL' with the column scaling left to
+// the caller, as in factor_lower; store_chol_tile turns it into a Cholesky
+// factor). colbuf: colbuf_words(TW) of shared memory. Called by every thread
+// of the team; ends in the team's barrier.
+template <typename T, int TW, int RY, int RX>
+__device__ void factor_grid(T (&t)[RY][RX], int n, T* __restrict__ diag, T* __restrict__ colbuf) {
+  constexpr int kY = TileGrid<TW>::kY, kX = TileGrid<TW>::kX, kHalf = tile_max_n(TW);
+  static_assert(kY * RY == kX * RX && kX * RX <= kHalf, "the tiles cover a square of at most tile_max_n rows");
+  const int tx = threadIdx.x % kX, ty = threadIdx.x / kX;
 #pragma unroll
-  for (int bj = 0; bj < kRows; ++bj) {
-    const int jend = min(kTileGrid, n - kTileGrid * bj);
+  for (int bj = 0; bj < RX; ++bj) {
+    const int amin = kX * bj / kY;  // row tiles below it hold rows < kX bj only
+    const int jend = min(kX, n - kX * bj);
     for (int jl = 0; jl < jend; ++jl) {
-      const int j = kTileGrid * bj + jl;
-      T* buf = colbuf + (j & 1) * (kTileGrid * kMaxTileRows);
+      const int j = kX * bj + jl;
+      T* buf = colbuf + (j & 1) * kHalf;
       if (tx == jl) {
 #pragma unroll
-        for (int a = bj; a < kRows; ++a) buf[ty + kTileGrid * a] = t[a][bj];
+        for (int a = 0; a < RY; ++a)
+          if (a >= amin && tile_live<kY, kX>(a, bj)) buf[ty + kY * a] = t[a][bj];
       }
-      __syncthreads();
+      Team<TW>::sync();
       const T piv = buf[j];
       const T inv = T(1) / piv;
       if (threadIdx.x == 0) diag[j] = piv;
-      T ci[kRows], ck[kRows];
+      T ci[RY], ck[RX];
 #pragma unroll
-      for (int a = bj; a < kRows; ++a) {
-        const int i = ty + kTileGrid * a;
-        ci[a] = i > j ? buf[i] * inv : T(0);
+      for (int a = 0; a < RY; ++a) {
+        const int i = ty + kY * a;
+        ci[a] = (a >= amin && i > j) ? buf[i] * inv : T(0);
       }
 #pragma unroll
-      for (int b = bj; b < kRows; ++b) {
-        const int k = tx + kTileGrid * b;
-        ck[b] = k > j ? buf[k] : T(0);
+      for (int b = 0; b < RX; ++b) {
+        const int k = tx + kX * b;
+        ck[b] = (b >= bj && k > j) ? buf[k] : T(0);
       }
 #pragma unroll
-      for (int a = bj; a < kRows; ++a)
+      for (int a = 0; a < RY; ++a)
 #pragma unroll
-        for (int b = bj; b <= a; ++b) t[a][b] -= ci[a] * ck[b];
+        for (int b = 0; b < RX; ++b)
+          if (a >= amin && b >= bj && tile_live<kY, kX>(a, b)) t[a][b] -= ci[a] * ck[b];
     }
   }
-  __syncthreads();
+  Team<TW>::sync();
+}
+
+// The 256-thread form (16 x 16 grid, kRows x kRows tiles, b <= a kept) of K1-K5 and K7.
+template <typename T, int kRows>
+__device__ void factor_tile(T (&t)[kRows][kRows], int n, T* __restrict__ diag, T* __restrict__ colbuf) {
+  factor_grid<T, 8, kRows, kRows>(t, n, diag, colbuf);
 }
 
 // Writes the Cholesky factor out of factor_tile's result: the lower triangle of

@@ -1,12 +1,14 @@
 // Pieces shared by the fused interior-point kernels (csrc/conic_pdip.cu, K6;
 // csrc/ns_pdip.cu, K7), generic over the solver's per-block state C (its
-// `Real` type and the fields each piece reads: the data AC, AE, c, bE, bC,
-// the iterate x, yE, yC, s, the residuals rd, rpE, rpC, the factor L (row
-// stride ld) with D in dvec, the scalar slots sc, nu_deg, and the sizes n, p,
-// mC, N): the residuals and the scale-relative metrics, the LDL' of K
-// assembled in register tiles from the solver's k_entry(c, i, k), the LDL'
-// solve on one warp, and a block-wide non-finite test. Every function is
-// called by every thread of the block and ends in __syncthreads.
+// `Real` type, its `Team` (dense.cuh: the warps that solve one instance, a
+// whole thread block; K7's is eight warps, K6's one, two or eight) and
+// the fields each piece reads: the data AC, AE, c, bE, bC, the iterate x, yE,
+// yC, s, the residuals rd, rpE, rpC, the factor L (row stride ld) with D in
+// dvec, the scalar slots sc, nu_deg, and the sizes n, p, mC, N): the
+// residuals and the scale-relative metrics, the LDL' of K assembled in
+// register tiles on the team's thread grid from the solver's k_entry(c, i, k),
+// the LDL' solve on one warp, and a team-wide non-finite test. Every function
+// is called by every thread of the team and ends in the team's barrier.
 #pragma once
 
 #include <float.h>
@@ -25,35 +27,39 @@ template <> __device__ inline double mach_eps<double>() { return DBL_EPSILON; }
 // scalar slots of the metrics in C::sc (the solvers number their own after them)
 enum IpmSlot { sAx2, sB2, sPres2, sNs, sNrdc, sNc, sNrd, sPobj, sDobj, sMu, sMuAff, kIpmSlots };
 
-// K assembled in register tiles, LDL' by factor_tile, unit-lower L (strict
-// lower triangle) to c.L and D to c.dvec
-template <class C, int kRows>
+// K assembled in register tiles (RX column tiles on the team's grid), LDL' by
+// factor_grid, unit-lower L (strict lower triangle) to c.L and D to c.dvec
+template <class C, int RX>
 __device__ __noinline__ void factor_tiled(const C& c) {
   using T = typename C::Real;
-  const int tx = threadIdx.x & (kTileGrid - 1), ty = threadIdx.x / kTileGrid;
+  constexpr int TW = C::Team::kWarps, kY = TileGrid<TW>::kY, kX = TileGrid<TW>::kX, RY = RX * kX / kY;
+  const int tx = threadIdx.x % kX, ty = threadIdx.x / kX;
   const int N = c.N;
-  T t[kRows][kRows];
+  T t[RY][RX];
 #pragma unroll
-  for (int a = 0; a < kRows; ++a)
+  for (int a = 0; a < RY; ++a)
 #pragma unroll
-    for (int b = 0; b <= a; ++b) {
-      const int i = ty + kTileGrid * a, k = tx + kTileGrid * b;
+    for (int b = 0; b < RX; ++b) {
+      if (!tile_live<kY, kX>(a, b)) continue;
+      const int i = ty + kY * a, k = tx + kX * b;
       t[a][b] = (i < N && k < N) ? k_entry(c, i, k) : T(0);
     }
-  factor_tile<T, kRows>(t, N, c.dvec, c.colbuf);
+  factor_grid<T, TW, RY, RX>(t, N, c.dvec, c.colbuf);
 #pragma unroll
-  for (int a = 0; a < kRows; ++a)
+  for (int a = 0; a < RY; ++a)
 #pragma unroll
-    for (int b = 0; b <= a; ++b) {
-      const int i = ty + kTileGrid * a, k = tx + kTileGrid * b;
+    for (int b = 0; b < RX; ++b) {
+      if (!tile_live<kY, kX>(a, b)) continue;
+      const int i = ty + kY * a, k = tx + kX * b;
       if (i < N && k < i) c.L[i * c.ld + k] = t[a][b] / c.dvec[k];
     }
-  __syncthreads();
+  C::Team::sync();
 }
 
+// false (nothing done) for N past what the team's tiles hold
 template <class C>
-__device__ void factor(const C& c) {
-  dispatch_tile(c.N, [&](auto rows) { factor_tiled<C, decltype(rows)::value>(c); });
+__device__ bool factor(const C& c) {
+  return dispatch_grid<C::Team::kWarps>(c.N, [&](auto rx) { factor_tiled<C, decltype(rx)::value>(c); });
 }
 
 // x <- (L D L')^-1 x on warp 0
@@ -67,7 +73,7 @@ __device__ __noinline__ void ldl_solve_warp0(const C& c, typename C::Real* x) {
     __syncwarp();
     warp_backward_sub<T>(c.L, c.ld, c.N, x, 1, nullptr, lane);
   }
-  __syncthreads();
+  C::Team::sync();
 }
 
 // rd = c + AC'yC + AE'yE, rpE = AE x - bE, rpC = AC x + s - bC (one thread per row)
@@ -75,7 +81,7 @@ template <class C>
 __device__ __noinline__ void residuals(const C& c) {
   using T = typename C::Real;
   const int mC = c.mC, n = c.n, p = c.p;
-  for (int r = threadIdx.x; r < c.N; r += kThreads) {
+  for (int r = threadIdx.x; r < c.N; r += C::Team::kThreads) {
     if (r < n) {
       T a = T(0);
       for (int i = 0; i < mC; ++i) a += c.AC[i * n + r] * c.yC[i];
@@ -98,16 +104,15 @@ __device__ __noinline__ void residuals(const C& c) {
       c.rpE[k] = a - c.bE[k];
     }
   }
-  __syncthreads();
+  C::Team::sync();
 }
 
-// the sums of the scale-relative metrics and mu into the slots
+// group 0: the primal sums, 1: the dual sums, 2: the objectives, 3: mu; run by one warp
 template <class C>
-__device__ __noinline__ void metric_sums(const C& c) {
+__device__ inline void metric_group(const C& c, int group, int lane) {
   using T = typename C::Real;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int mC = c.mC, n = c.n, p = c.p;
-  if (warp == 0) {
+  if (group == 0) {
     T ax = T(0), b2 = T(0), pr = T(0), ns = T(0);
     for (int i = lane; i < mC; i += 32) {
       const T a = c.rpC[i] - c.s[i] + c.bC[i];
@@ -131,7 +136,7 @@ __device__ __noinline__ void metric_sums(const C& c) {
       c.sc[sPres2] = p ? pr + pre : pr;
       c.sc[sNs] = ns;
     }
-  } else if (warp == 1) {
+  } else if (group == 1) {
     T a = T(0), b = T(0), r = T(0);
     for (int j = lane; j < n; j += 32) {
       const T u = c.rd[j] - c.c[j];
@@ -141,21 +146,30 @@ __device__ __noinline__ void metric_sums(const C& c) {
     }
     a = warp_sum(a); b = warp_sum(b); r = warp_sum(r);
     if (lane == 0) { c.sc[sNrdc] = a; c.sc[sNc] = b; c.sc[sNrd] = r; }
-  } else if (warp == 2) {
+  } else if (group == 2) {
     T po = T(0), dc = T(0), de = T(0);
     for (int j = lane; j < n; j += 32) po += c.c[j] * c.x[j];
     for (int i = lane; i < mC; i += 32) dc += c.bC[i] * c.yC[i];
     for (int k = lane; k < p; k += 32) de += c.bE[k] * c.yE[k];
     po = warp_sum(po); dc = warp_sum(dc); de = warp_sum(de);
     if (lane == 0) { c.sc[sPobj] = po; c.sc[sDobj] = p ? -dc - de : -dc; }
-  } else if (warp == 3) {
+  } else {
     T a = T(0);
     for (int i = lane; i < mC; i += 32) a += c.s[i] * c.yC[i];
     a = warp_sum(a);
     if (lane == 0) c.sc[sMu] = a / c.nu_deg;
   }
-  __syncthreads();
 }
+
+// the sums of the scale-relative metrics and mu into the slots: four groups,
+// one warp each (a team of fewer warps takes them in turn)
+template <class C>
+__device__ __noinline__ void metric_sums(const C& c) {
+  const int lane = threadIdx.x & 31;
+  for (int group = threadIdx.x >> 5; group < 4; group += C::Team::kWarps) metric_group(c, group, lane);
+  C::Team::sync();
+}
+
 
 template <typename T>
 struct Metrics { T pres, dres, gaprel, mu; };
@@ -172,19 +186,19 @@ __device__ Metrics<typename C::Real> metrics(const C& c) {
   const T po = c.sc[sPobj], dob = c.sc[sDobj];
   m.gaprel = fabs(po - dob) / (T(1) + fabs(po) + fabs(dob));
   m.mu = c.sc[sMu];
-  __syncthreads();  // every thread has read the slots
+  C::Team::sync();  // every thread has read the slots
   return m;
 }
 
-// 1 in every thread if any entry of the vectors is NaN or infinite
-template <typename T>
+// true in every thread of the team if any entry of the vectors is NaN or infinite
+template <class Tm, typename T>
 __device__ inline bool any_nonfinite(const T* a, int na, const T* b, int nb_, const T* d, int nd, const T* e, int ne) {
   int bad = 0;
-  for (int i = threadIdx.x; i < na; i += kThreads) bad |= !isfinite(a[i]);
-  for (int i = threadIdx.x; i < nb_; i += kThreads) bad |= !isfinite(b[i]);
-  for (int i = threadIdx.x; i < nd; i += kThreads) bad |= !isfinite(d[i]);
-  for (int i = threadIdx.x; i < ne; i += kThreads) bad |= !isfinite(e[i]);
-  return __syncthreads_or(bad) != 0;
+  for (int i = threadIdx.x; i < na; i += Tm::kThreads) bad |= !isfinite(a[i]);
+  for (int i = threadIdx.x; i < nb_; i += Tm::kThreads) bad |= !isfinite(b[i]);
+  for (int i = threadIdx.x; i < nd; i += Tm::kThreads) bad |= !isfinite(d[i]);
+  for (int i = threadIdx.x; i < ne; i += Tm::kThreads) bad |= !isfinite(e[i]);
+  return Tm::any(bad);
 }
 
 }  // namespace dk

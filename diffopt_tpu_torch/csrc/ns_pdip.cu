@@ -102,6 +102,7 @@ __host__ __device__ inline size_t ns_smem_bytes(const NsLayout& L, int itemsize)
 template <typename T>
 struct NsIpm {
   using Real = T;
+  using Team = dk::Team<kWarps>;  // one instance per block of eight warps
   int n, p, mC, N, ld, nb, nsoc, nns, l;
   T reg, eps, nu_deg, beta;
   const int *bkind, *boff, *bdim, *bidx;  // per cone block: nonneg (if any), socs, ns blocks
@@ -697,7 +698,7 @@ ns_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __restri
       alpha = line_search(c, c.s, c.yC, c.ds, c.dyC, 2);
     }
 
-    const bool bad = any_nonfinite(c.dx, n, c.dyC, mC, c.ds, mC, c.dyE, p) || !isfinite(alpha);
+    const bool bad = any_nonfinite<Team<kWarps>>(c.dx, n, c.dyC, mC, c.ds, mC, c.dyE, p) || !isfinite(alpha);
     if (bad) {
       own = it + 1;
       break;
@@ -716,7 +717,7 @@ ns_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __restri
   {
     const Metrics<T> m = metrics(c);
     const T err = nan_max(nan_max(m.pres, m.dres), m.gaprel);
-    const bool fin = !any_nonfinite(c.x, n, c.yC, mC, c.x, 0, c.x, 0);
+    const bool fin = !any_nonfinite<Team<kWarps>>(c.x, n, c.yC, mC, c.x, 0, c.x, 0);
     if (!(err < errb && fin)) {
       for (int j = tid; j < n; j += kThreads) c.x[j] = c.xb[j];
       for (int k = tid; k < p; k += kThreads) c.yE[k] = c.yEb[k];

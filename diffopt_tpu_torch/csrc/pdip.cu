@@ -39,31 +39,12 @@
 // (the caller asks for it when that fits); with stage = 0 they are read from
 // device memory / L2 each time.
 #include "dense.cuh"
+#include "prof.cuh"
 
 namespace dk {
 
-// Phase probes for tools/pdip_phase_cycles.py: compiled in only with
-// -DDK_PROFILE (a block barrier, then thread 0 adds the cycles since the last
-// probe to counter k in device memory); otherwise they vanish. Counter 8 takes
-// a block's whole time, counter 9 its factorisations (the init + the bodies).
-#ifdef DK_PROFILE
-__device__ unsigned long long g_prof[16];
-#define DK_PROF_START() long long t0_ = clock64()
-#define DK_PROF(k)                                               \
-  do {                                                           \
-    __syncthreads();                                             \
-    if (threadIdx.x == 0) {                                      \
-      const long long t_ = clock64();                            \
-      atomicAdd(&g_prof[k], (unsigned long long)(t_ - t0_));     \
-      t0_ = t_;                                                  \
-    }                                                            \
-  } while (0)
-#define DK_PROF_ADD(k, v) atomicAdd(&g_prof[k], (unsigned long long)(v))
-#else
-#define DK_PROF_START() do {} while (0)
-#define DK_PROF(k) do {} while (0)
-#define DK_PROF_ADD(k, v) do {} while (0)
-#endif
+// Phase probes (prof.cuh) for tools/pdip_phase_cycles.py: counter 8 takes a
+// block's whole time, counter 9 its factorisations (the init + the bodies).
 
 enum Slot {
   kDscale, kPscale, kGscale, kMu, kMaxRd, kMaxRpe, kMaxRpi, kAp, kAd, kSigMu, kAs, kAl,
@@ -542,13 +523,8 @@ int launch_pdip(const void* Q, const void* q, const void* A, const void* b, cons
 extern "C" {
 
 #ifdef DK_PROFILE
-int pdip_prof_read(unsigned long long* out) {
-  return int(cudaMemcpyFromSymbol(out, dk::g_prof, sizeof(dk::g_prof)));
-}
-int pdip_prof_zero() {
-  const unsigned long long zeros[16] = {0};
-  return int(cudaMemcpyToSymbol(dk::g_prof, zeros, sizeof(zeros)));
-}
+int pdip_prof_read(unsigned long long* out) { return dk::prof_read(out); }
+int pdip_prof_zero() { return dk::prof_zero(); }
 #endif
 
 const char* dk_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

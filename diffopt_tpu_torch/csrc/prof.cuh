@@ -1,0 +1,46 @@
+// Phase probes of the fused solver kernels, read by tools/pdip_phase_cycles.py
+// (K1) and tools/k6_phase_cycles.py (K6). They are compiled in only with
+// -DDK_PROFILE; otherwise every macro vanishes and the package's own build
+// carries no trace of them.
+//
+// DK_PROF_START() opens a block's clock; DK_PROF(k) is a block barrier, then
+// thread 0 adds the cycles since the previous probe to counter k in device
+// memory; DK_PROF_ADD(k, v) adds v to counter k. The barrier makes a probe a
+// phase boundary: it costs a few percent, and the shares are what to read.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace dk {
+
+constexpr int kProfCounters = 16;
+
+#ifdef DK_PROFILE
+__device__ unsigned long long g_prof[kProfCounters];
+#define DK_PROF_START() long long t0_ = clock64()
+#define DK_PROF(k)                                               \
+  do {                                                           \
+    __syncthreads();                                             \
+    if (threadIdx.x == 0) {                                      \
+      const long long t_ = clock64();                            \
+      atomicAdd(&g_prof[k], (unsigned long long)(t_ - t0_));     \
+      t0_ = t_;                                                  \
+    }                                                            \
+  } while (0)
+#define DK_PROF_ADD(k, v) atomicAdd(&g_prof[k], (unsigned long long)(v))
+
+// the counters to the host (out: kProfCounters words) and back to zero
+inline int prof_read(unsigned long long* out) {
+  return int(cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof)));
+}
+inline int prof_zero() {
+  const unsigned long long zeros[kProfCounters] = {0};
+  return int(cudaMemcpyToSymbol(g_prof, zeros, sizeof(zeros)));
+}
+#else
+#define DK_PROF_START() do {} while (0)
+#define DK_PROF(k) do {} while (0)
+#define DK_PROF_ADD(k, v) do {} while (0)
+#endif
+
+}  // namespace dk

@@ -12,6 +12,7 @@ use, one ``nvcc`` process each, started together. The build directory is
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -74,29 +75,44 @@ def _build_all() -> dict[str, Path]:
     todo = {name: path for name, path in targets.items() if not path.exists()}
     if not todo:
         return targets
-    nvcc = _nvcc()
     t0 = time.perf_counter()
-    procs = {}
-    for name, path in todo.items():
+    _compile([(name, path, (), out / f"{name}.nvcc.log") for name, path in todo.items()])
+    build_seconds = time.perf_counter() - t0
+    return targets
+
+
+def _compile(jobs: list[tuple[str, Path, tuple[str, ...], Path]]) -> None:
+    """Compile ``csrc/<name>.cu`` into ``path`` with ``extra`` flags, its
+    output into ``log``, for each ``(name, path, extra, log)``: one ``nvcc``
+    each, started together. Raise if one fails."""
+    if not jobs:
+        return
+    nvcc = _nvcc()
+    procs = []
+    for name, path, extra, log in jobs:
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, path,
-        )
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), *extra, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs.append((name, proc, tmp, path, log))
     failed = []
-    for name, (proc, tmp, path) in procs.items():
+    for name, proc, tmp, path, log_path in procs:
         log, _ = proc.communicate()
-        (out / f"{name}.nvcc.log").write_text(log)
+        log_path.write_text(log)
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, path)
-    build_seconds = time.perf_counter() - t0
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return targets
+
+
+def _open(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    lib.dk_error_string.argtypes = [ctypes.c_int]
+    lib.dk_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -104,12 +120,42 @@ def load(name: str) -> ctypes.CDLL:
     first if needed)."""
     with _lock:
         if name not in _libs:
-            path = _build_all()[name]
-            lib = ctypes.CDLL(str(path))
-            lib.dk_error_string.argtypes = [ctypes.c_int]
-            lib.dk_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[name] = _open(_build_all()[name])
         return _libs[name]
+
+
+def build_variants(name: str, *flag_sets) -> list[Path]:
+    """The libraries of ``csrc/<name>.cu`` built with each set of extra
+    ``nvcc`` flags, the missing ones compiled side by side; each one's
+    ``nvcc`` output is beside it, as ``.log``."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    paths = [out / f"lib{name}-{_digest()}-{hashlib.sha256(' '.join(f).encode()).hexdigest()[:8]}.so"
+             for f in flag_sets]
+    with _lock:
+        _compile([(name, path, tuple(f), path.with_suffix(".log"))
+                  for f, path in zip(flag_sets, paths) if not path.exists()])
+    return paths
+
+
+@contextlib.contextmanager
+def variant(name: str, *flags: str):
+    """Inside the block, :func:`load` gives ``csrc/<name>.cu`` built with the
+    extra ``nvcc`` flags (for example ``-DDK_PROFILE``, the phase probes of
+    ``csrc/prof.cuh``) into a library of its own, so the package's wrappers
+    launch that build; the package's own build is back after the block."""
+    path = build_variants(name, flags)[0]
+    with _lock:
+        lib, before = _open(path), _libs.get(name)
+        _libs[name] = lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            if before is None:
+                _libs.pop(name, None)
+            else:
+                _libs[name] = before
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

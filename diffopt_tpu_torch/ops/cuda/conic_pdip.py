@@ -8,18 +8,22 @@ body ``_kernel``). Source: ``csrc/conic_pdip.cu``. Internal layout
 (``solvers/conic_ipm.py::solve_batched_fused``) applies the static orthogonal
 row transform R (nonpos negation, rsoc rotation).
 
-Design on the H100: one thread block per instance (the TPU kernel's 128
-lanes become 128 blocks); ``AC``, ``AE``, ``c``, ``b``, the iterate, the
+Design on the H100: one instance per *team* of 1, 2 or 8 warps, one team
+per thread block, many teams resident on each SM (the TPU kernel's 128
+lanes become 128 teams); ``AC``, ``AE``, ``c``, ``b``, the iterate, the
 scaling and the LDL' factor of the Newton matrix live in shared memory for
-all iterations. Per iteration the block assembles the quasi-definite matrix
-K in ``[cone | x | eq]`` order straight into register tiles (its -W^2 block
-computed entry by entry from the scaling, never stored), factors it with
-``dense.cuh``'s register-tiled LDL' and keeps only L; the triangular
-substitutions run on one warp with the right-hand side in registers, and the
-refinement residual ``rhs - K sol`` is formed from the blocks of K. Each SOC
-block's reductions are warp reductions; each psd block's Jacobi
-eigendecompositions, square roots and small products run on one warp in
-shared memory (the same sweep rule as :func:`~diffopt_tpu_torch.ops.smalleig.jacobi_eigh`).
+all iterations. Per iteration the team assembles the quasi-definite matrix
+K in ``[cone | x | eq]`` order straight into register tiles on its thread
+grid (its -W^2 block computed entry by entry from the scaling, never
+stored), factors it with ``dense.cuh``'s register-tiled LDL' and keeps only
+L; the triangular substitutions run on one warp with the right-hand side in
+registers, and the refinement residual ``rhs - K sol`` is formed from the
+blocks of K. Each SOC block's reductions are warp reductions; each psd
+block's Jacobi eigendecompositions, square roots and small products run on
+one warp in shared memory (the same sweep rule as
+:func:`~diffopt_tpu_torch.ops.smalleig.jacobi_eigh`), the team's warps
+taking the blocks in turn. Which team a layout gets is the launch rule,
+:func:`team_for`, written once in the source and mirrored here.
 An instance leaves its loop at its first freeze (converged, stalled,
 ``mu <= 0`` or a non-finite direction); a frozen lane of the TPU kernel keeps
 its state, so the result is the same.
@@ -32,12 +36,15 @@ d eight Jacobi eigendecompositions and some forty d x d products
 (``chip_smoke.py::conic_pdip_flops`` counts it all). The critical path is
 sequential — N elimination steps with a block barrier each, 2 N substitution
 steps per solve on one warp, and the psd blocks' rotation chains — so the
-design keeps every operand on chip and lets several blocks share an SM.
+design keeps every operand on chip and puts as many instances on an SM as
+their working sets allow: the serial chain of one instance overlaps the
+chains of the others.
 
 Envelope (:func:`in_envelope`): ``N = n + p + mC <= 128`` (the register
-tiles of the LDL'), psd sides <= 12 (``smalleig.MAX_JACOBI_SIDE``), at most
+tiles of the LDL'; a team of one warp holds 40 rows, of two 64, of
+eight 128), psd sides <= 12 (``smalleig.MAX_JACOBI_SIDE``), at most
 :data:`MAX_SOC_BLOCKS` soc and :data:`MAX_PSD_BLOCKS` psd blocks, and a working
-set that fits 227 KB of shared memory (:func:`smem_bytes`). It covers the
+set that fits 227 KB of shared memory (:func:`smem_bytes`) for some team. It covers the
 reference's envelope (N <= 128, psd side <= 6) in f32 and f64. Past it,
 ``solve_batched_fused`` sends the batch to the staged solver by shape.
 
@@ -63,15 +70,24 @@ Tensor = torch.Tensor
 MAX_N = 128  # rows of K that the register tiles of the LDL' hold
 MAX_SOC_BLOCKS = 128  # kMaxSoc in csrc/conic_pdip.cu
 MAX_PSD_BLOCKS = 64  # kMaxPsd
-_SLOTS = 64  # kNumSlots
-_COLBUF = 256  # kColbufWords of dense.cuh
-_WARPS = 8
-_STATIC_SMEM = 1024  # room for the kernel's static shared memory (its pointer table)
+TEAMS = (1, 2, 8)  # warps per instance the kernel is built for (kTeams)
+_SLOTS = 64  # kConicSlots
+_STATIC_SMEM = 1024  # kStaticSmem: room for the kernel's static shared memory (its pointer table)
+SM_SMEM_BYTES = 233472  # shared memory of one SM of an H100 (228 KB) ...
+_BLOCK_RESERVED_SMEM = 1024  # ... of which each resident block takes 1 KB for the system
+_SM_MAX_BLOCKS, _SM_MAX_WARPS = 32, 64
 
 
-def smem_bytes(n: int, p: int, l: int, soc_dims, psd_sides, itemsize: int) -> int:
-    """Dynamic shared memory of the kernel — mirrors ``conic_words`` in
-    ``csrc/conic_pdip.cu`` (the wrapper checks the two against each other)."""
+def tile_max_n(team: int) -> int:
+    """Rows of K the register tiles of a team of ``team`` warps hold (``tile_max_n`` in ``csrc/dense.cuh``)."""
+    return 40 if team == 1 else (128 if team == 8 else 64)
+
+
+def smem_bytes(n: int, p: int, l: int, soc_dims, psd_sides, itemsize: int, team: int = 8) -> int:
+    """Dynamic shared memory of the kernel for a team of ``team`` warps — mirrors
+    ``conic_words`` in ``csrc/conic_pdip.cu`` (the wrapper checks the two
+    against each other): the instance's working set, the team's pivot column
+    (``2 tile_max_n(team)`` words) and one psd workspace per warp."""
     mC = l + sum(soc_dims) + sum(d * (d + 1) // 2 for d in psd_sides)
     N = n + p + mC
     nb = (1 if l else 0) + len(soc_dims) + len(psd_sides)
@@ -79,19 +95,44 @@ def smem_bytes(n: int, p: int, l: int, soc_dims, psd_sides, itemsize: int) -> in
     int_bytes = (ints * 4 + 15) // 16 * 16
     dmax = max(psd_sides, default=0)
     words = mC * n + p * n + n + p + mC
-    words += 4 * n + 4 * p + 20 * mC + 4 * N + N * _odd(N) + _COLBUF + _SLOTS
-    words += sum(5 * d * d + d for d in psd_sides) + _WARPS * (5 * dmax * dmax + dmax)
+    words += 4 * n + 4 * p + 20 * mC + 4 * N + N * _odd(N) + 2 * tile_max_n(team) + _SLOTS
+    words += sum(5 * d * d + d for d in psd_sides) + team * (5 * dmax * dmax + dmax)
     return int_bytes + words * itemsize
 
 
+def team_takes(n: int, p: int, l: int, soc_dims, psd_sides, itemsize: int, team: int) -> bool:
+    """Whether a team of ``team`` warps takes the layout (``conic_team_takes``):
+    K's rows in its register tiles, its working set in one block's shared memory."""
+    mC = l + sum(soc_dims) + sum(d * (d + 1) // 2 for d in psd_sides)
+    return (
+        team in TEAMS and n + p + mC <= tile_max_n(team)
+        and smem_bytes(n, p, l, soc_dims, psd_sides, itemsize, team) <= MAX_SMEM_BYTES - _STATIC_SMEM
+    )
+
+
+def team_for(n: int, p: int, l: int, soc_dims, psd_sides, itemsize: int) -> int:
+    """The launch rule (``conic_team`` in ``csrc/conic_pdip.cu``): the smallest
+    team that takes the layout; 0 where none does."""
+    return next((t for t in TEAMS if team_takes(n, p, l, soc_dims, psd_sides, itemsize, t)), 0)
+
+
+def instances_per_sm(n: int, p: int, l: int, soc_dims, psd_sides, itemsize: int, team: int) -> int:
+    """Instances (teams) one SM holds at least, by shared memory and the SM's
+    block and warp limits, counting the whole room kept for the static pointer
+    table (the build may use less of it, and its registers may allow fewer
+    teams: :func:`blocks_per_sm` asks the card, and is the count to trust)."""
+    per_block = smem_bytes(n, p, l, soc_dims, psd_sides, itemsize, team) + _STATIC_SMEM + _BLOCK_RESERVED_SMEM
+    return min(_SM_MAX_BLOCKS, _SM_MAX_WARPS // team, SM_SMEM_BYTES // per_block)
+
+
 def in_envelope(n: int, p: int, l: int, soc_dims, psd_sides, itemsize: int) -> bool:
-    """Whether the fused kernel takes the layout."""
+    """Whether the fused kernel takes the layout (with the team the launch rule picks)."""
     mC = l + sum(soc_dims) + sum(d * (d + 1) // 2 for d in psd_sides)
     return (
         mC >= 1 and n >= 1 and n + p + mC <= MAX_N
         and max(psd_sides, default=0) <= MAX_JACOBI_SIDE
         and len(soc_dims) <= MAX_SOC_BLOCKS and len(psd_sides) <= MAX_PSD_BLOCKS
-        and smem_bytes(n, p, l, soc_dims, psd_sides, itemsize) <= MAX_SMEM_BYTES - _STATIC_SMEM
+        and team_for(n, p, l, soc_dims, psd_sides, itemsize) > 0
     )
 
 
@@ -239,11 +280,15 @@ def _lib():
         for sfx in _SUFFIX.values():
             f = getattr(lib, f"conic_pdip_{sfx}")
             # c, bE, bC, AE, AC, x, yE, yC, s, it, pres, dres; B, n, p, l, nsoc, soc_dims, npsd,
-            # psd_sides; iters, tol, reg, eps; stream
-            f.argtypes = [vp] * 12 + [ci] * 5 + [vp, ci, vp, ci, cd, cd, cd, vp]
+            # psd_sides; iters, tol, reg, eps; team; stream
+            f.argtypes = [vp] * 12 + [ci] * 5 + [vp, ci, vp, ci, cd, cd, cd, ci, vp]
             f.restype = ci
-        lib.conic_pdip_smem_bytes.argtypes = [ci, ci, ci, ci, vp, ci, vp, ci]
+        lib.conic_pdip_smem_bytes.argtypes = [ci, ci, ci, ci, vp, ci, vp, ci, ci]
         lib.conic_pdip_smem_bytes.restype = ctypes.c_longlong
+        lib.conic_pdip_team.argtypes = [ci, ci, ci, ci, vp, ci, vp, ci]
+        lib.conic_pdip_team.restype = ci
+        lib.conic_pdip_blocks_per_sm.argtypes = [ci, ci, ci, ci, vp, ci, vp, ci, ci]
+        lib.conic_pdip_blocks_per_sm.restype = ci
         lib._conic_bound = True
     return lib
 
@@ -256,6 +301,7 @@ def solve_tile_fused(
     tol: float = 5e-6,
     reg: float = 1e-7,
     eps: float = 1e-7,
+    team: int | None = None,
 ):
     """Run the fused IPM on internally-laid-out, batch-first data: ``c (B,
     n)``, ``bE (B, p)``, ``bC (B, mC)``, ``AE (B, p, n)``, ``AC (B, mC, n)``,
@@ -263,9 +309,11 @@ def solve_tile_fused(
     iterations (int32), pres, dres)``, batch-first; ``pres`` / ``dres`` are the
     scale-relative residuals of the returned state.
 
-    CUDA tensors go to the kernel (a layout outside :func:`in_envelope`, a
-    failed build or a failed launch raises); CPU tensors to the plain
-    version."""
+    CUDA tensors go to the kernel with ``team`` warps per instance (None: the
+    launch rule's :func:`team_for`); a layout outside :func:`in_envelope`, a
+    team that does not take it, a failed build or a failed launch raises —
+    another team is never tried. CPU tensors go to the plain version, which
+    has no teams."""
     p, l, soc_dims, psd_sides = layout
     soc_dims, psd_sides = tuple(int(d) for d in soc_dims), tuple(int(d) for d in psd_sides)
     B, n = c.shape
@@ -290,6 +338,14 @@ def solve_tile_fused(
             "kernel's envelope (N <= 128, psd side <= 12, 227 KB of shared memory); "
             "solvers/conic_ipm.py::solve_batched_fused routes such batches to the staged solver"
         )
+    if team is None:
+        team = team_for(n, p, l, soc_dims, psd_sides, itemsize)
+    elif not team_takes(n, p, l, soc_dims, psd_sides, itemsize, team):
+        raise ValueError(
+            f"solve_tile_fused: a team of {team} warps does not take layout n={n}, p={p}, l={l}, soc {soc_dims},"
+            f" psd {psd_sides} (N <= {tile_max_n(team) if team in TEAMS else '-'} and 227 KB of shared memory;"
+            f" teams {TEAMS})"
+        )
     c, bE, bC, AE, AC = (t.detach().contiguous() for t in (c, bE, bC, AE, AC))
     x = c.new_empty(B, n)
     yE = c.new_empty(B, p)
@@ -302,9 +358,12 @@ def solve_tile_fused(
         lib = _lib()
         socs = ctypes.cast((ctypes.c_int * max(len(soc_dims), 1))(*soc_dims), ctypes.c_void_p)
         psds = ctypes.cast((ctypes.c_int * max(len(psd_sides), 1))(*psd_sides), ctypes.c_void_p)
-        want = smem_bytes(n, p, l, soc_dims, psd_sides, itemsize)
-        if lib.conic_pdip_smem_bytes(n, p, l, len(soc_dims), socs, len(psd_sides), psds, itemsize) != want:
+        want = smem_bytes(n, p, l, soc_dims, psd_sides, itemsize, team)
+        if lib.conic_pdip_smem_bytes(n, p, l, len(soc_dims), socs, len(psd_sides), psds, itemsize, team) != want:
             raise RuntimeError("solve_tile_fused: shared-memory layout of wrapper and kernel differ")
+        rule = team_for(n, p, l, soc_dims, psd_sides, itemsize)
+        if lib.conic_pdip_team(n, p, l, len(soc_dims), socs, len(psd_sides), psds, itemsize) != rule:
+            raise RuntimeError("solve_tile_fused: launch rule of wrapper and kernel differ")
         fn = getattr(lib, f"conic_pdip_{_SUFFIX[dt]}")
         with torch.cuda.device(c.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -312,13 +371,29 @@ def solve_tile_fused(
                 c.data_ptr(), bE.data_ptr(), bC.data_ptr(), AE.data_ptr(), AC.data_ptr(),
                 x.data_ptr(), yE.data_ptr(), yC.data_ptr(), s.data_ptr(), its.data_ptr(),
                 pres.data_ptr(), dres.data_ptr(), B, n, p, l, len(soc_dims), socs, len(psd_sides), psds,
-                int(max_iters), float(tol), float(reg), float(eps), stream,
+                int(max_iters), float(tol), float(reg), float(eps), int(team), stream,
             )
         from . import _build
 
-        _build.check(lib, code, "solve_tile_fused")
+        _build.check(lib, code, f"solve_tile_fused (team of {team} warps)")
         solve_tile_fused.launches += 1
     return x, yE, yC, s, its, pres, dres
 
 
 solve_tile_fused.launches = 0
+
+
+def blocks_per_sm(n: int, p: int, l: int, soc_dims, psd_sides, dtype, team: int) -> int:
+    """Instances (teams of ``team`` warps) resident on one SM of the current
+    card for the layout, as the CUDA occupancy calculator counts them with the
+    built kernel's registers and shared memory. Needs the card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("conic_pdip.blocks_per_sm: no CUDA device")
+    soc_dims, psd_sides = tuple(int(d) for d in soc_dims), tuple(int(d) for d in psd_sides)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    socs = ctypes.cast((ctypes.c_int * max(len(soc_dims), 1))(*soc_dims), ctypes.c_void_p)
+    psds = ctypes.cast((ctypes.c_int * max(len(psd_sides), 1))(*psd_sides), ctypes.c_void_p)
+    got = _lib().conic_pdip_blocks_per_sm(n, p, l, len(soc_dims), socs, len(psd_sides), psds, itemsize, team)
+    if got < 0:
+        raise RuntimeError(f"conic_pdip.blocks_per_sm: CUDA error {-got} for a team of {team} warps")
+    return got

@@ -56,6 +56,17 @@ def supports(cones) -> bool:
     return all(k in _IPM_KINDS for k, _, _ in cones.blocks)
 
 
+def internal_rows(cp):
+    """A batch's data in the internal row order: ``(c, bE, bC, AE, AC)`` with
+    the rows through the static transform R of :func:`_row_transform`, the
+    internal layout ``(p, l, soc_dims, psd_sides)``, and R as a tensor."""
+    R_np, p, l, soc_dims, psd_sides = _row_transform(cp.cones)
+    R = torch.as_tensor(R_np, dtype=cp.A.dtype, device=cp.A.device)
+    A = torch.einsum("ij,bjk->bik", R, cp.A)
+    b = cp.b @ R.T
+    return (cp.c, b[:, :p], b[:, p:], A[:, :p], A[:, p:]), (p, l, soc_dims, psd_sides), R
+
+
 def _check_supported(cones) -> None:
     if not supports(cones):
         raise ValueError(
@@ -162,12 +173,7 @@ def solve_batched(
     if reg is None:
         reg = cfg.ipm_reg(dt)
     B, n = cp.c.shape
-    R_np, p, l, soc_dims, psd_sides = _row_transform(cp.cones)
-    R = torch.as_tensor(R_np, dtype=dt, device=dev)
-    A = torch.einsum("ij,bjk->bik", R, cp.A)
-    b = cp.b @ R.T
-    c = cp.c
-    AE, bE, AC, bC = A[:, :p], b[:, :p], A[:, p:], b[:, p:]
+    (c, bE, bC, AE, AC), (p, l, soc_dims, psd_sides), R = internal_rows(cp)
     mC = AC.shape[1]
     cones = (l, soc_dims, psd_sides)
     nu_deg = max(l + len(soc_dims) + sum(psd_sides), 1)

@@ -33,16 +33,6 @@ import subprocess
 import torch
 
 
-def _internal(cp):
-    from diffopt_tpu_torch.solvers import conic_ipm
-
-    R, p, l, socs, psds = conic_ipm._row_transform(cp.cones)
-    R = torch.as_tensor(R, dtype=cp.A.dtype, device=cp.A.device)
-    A = torch.einsum("ij,bjk->bik", R, cp.A)
-    b = cp.b @ R.T
-    return [cp.c, b[:, :p], b[:, p:], A[:, :p], A[:, p:]], (p, l, socs, psds)
-
-
 def _kw(dt, iters, tol=None):
     f64 = dt == torch.float64
     return dict(max_iters=iters, tol=tol or (1e-9 if f64 else 5e-6), reg=1e-11 if f64 else 1e-7,
@@ -75,6 +65,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("k6_divergence: no CUDA device")
     from diffopt_tpu_torch.ops.cuda import conic_pdip
+    from diffopt_tpu_torch.solvers.conic_ipm import internal_rows
     from diffopt_tpu_torch.utils.testing import make_sdp_batch, make_socp_batch
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -87,7 +78,7 @@ def main():
     cases = [("SDP side 4", make_sdp_batch(B, 4, seed=4, dtype=torch.float64)),
              ("SOCP n=16", make_socp_batch(B, n=16, seed=2, dtype=torch.float64))]
     for label, cp in cases:
-        data, lay = _internal(cp)
+        data, lay, _ = internal_rows(cp)
         full_k = conic_pdip.solve_tile_fused(*data, lay, **_kw(torch.float64, 50))
         full_p = conic_pdip.solve_tile_fused_plain(*data, lay, **_kw(torch.float64, 50))
         gap = _diff(full_k, full_p)
@@ -115,7 +106,7 @@ def main():
 
     # f32: which of the two stays closer to the f64 trajectory
     cp = make_sdp_batch(B, 4, seed=3)
-    data, lay = _internal(cp)
+    data, lay, _ = internal_rows(cp)
     data64 = [t.double() for t in data]
     full_k = conic_pdip.solve_tile_fused(*data, lay, **_kw(torch.float32, 50))
     full_p = conic_pdip.solve_tile_fused_plain(*data, lay, **_kw(torch.float32, 50))

@@ -97,3 +97,67 @@ def test_envelope_and_shared_memory():
     assert tk6.smem_bytes(16, 0, 0, (17,), (), 4) == 9160
     assert tk6.smem_bytes(16, 0, 0, (17,), (), 8) == 18160
     assert tk6.smem_bytes(3, 0, 0, (4,), (4,), 8) == 14432
+
+
+def _old_envelope(n, p, l, soc_dims, psd_sides, itemsize):
+    """The envelope of the one-block-of-eight-warps kernel: N <= 128, psd side <= 12, the block counts, and
+    its working set (the eight-warp team's) in 227 KB less the static table."""
+    mC = l + sum(soc_dims) + sum(d * (d + 1) // 2 for d in psd_sides)
+    return (mC >= 1 and n >= 1 and n + p + mC <= 128 and max(psd_sides, default=0) <= 12
+            and len(soc_dims) <= tk6.MAX_SOC_BLOCKS and len(psd_sides) <= tk6.MAX_PSD_BLOCKS
+            and tk6.smem_bytes(n, p, l, soc_dims, psd_sides, itemsize, 8) <= tk6.MAX_SMEM_BYTES - 1024)
+
+
+def _layouts(rng, count):
+    """Random layouts around the envelope's edges, plus its corners."""
+    out = [(64, 0, 0, (64,), ()), (2, 0, 0, (), (6,) * 6), (40, 24, 64, (), ()), (3, 0, 0, (4,), (12,)),
+           (1, 0, 0, (), (12,) * 2), (1, 0, 1, (), ()), (16, 0, 0, (17,), ()), (3, 0, 0, (4,), (4,)),
+           (3, 0, 0, (4,), (8,)), (5, 2, 5, (4, 3), (3,)), (10, 5, 2, (2,) * 15, (1,) * 3)]
+    for _ in range(count):
+        n, p, l = int(rng.integers(1, 70)), int(rng.integers(0, 30)), int(rng.integers(0, 40))
+        socs = tuple(int(d) for d in rng.integers(1, 30, size=int(rng.integers(0, 4))))
+        psds = tuple(int(d) for d in rng.integers(1, 14, size=int(rng.integers(0, 4))))
+        out.append((n, p, l, socs, psds))
+    return out
+
+
+def test_launch_rule_takes_every_layout_of_the_old_envelope():
+    """The Python mirror of K6's launch rule picks a team for every layout the eight-warp kernel took (the
+    envelope does not shrink), the smallest team that takes it, whose tiles hold N and whose working set
+    fits one block's shared memory; a layout past the envelope gets none. No card and no JAX needed."""
+    rng = np.random.default_rng(0)
+    taken = 0
+    for itemsize in (4, 8):
+        for lay in _layouts(rng, 3000):
+            n, p, l, socs, psds = lay
+            old = _old_envelope(*lay, itemsize)
+            team = tk6.team_for(*lay, itemsize)
+            assert tk6.in_envelope(*lay, itemsize) >= old, lay
+            if not old:
+                continue
+            taken += 1
+            assert team in tk6.TEAMS and tk6.team_takes(*lay, itemsize, team), (lay, team)
+            assert all(not tk6.team_takes(*lay, itemsize, t) for t in tk6.TEAMS if t < team), (lay, team)
+            N = n + p + l + sum(socs) + sum(d * (d + 1) // 2 for d in psds)
+            assert N <= tk6.tile_max_n(team)
+            assert tk6.smem_bytes(*lay, itemsize, team) + 1024 <= tk6.MAX_SMEM_BYTES  # 227 KB with the static table
+    assert taken > 1000  # the sample reaches deep into the envelope
+    # past it: N > 128, a side past the Jacobi range, no cone rows
+    for lay in ((64, 1, 0, (64,), ()), (3, 0, 0, (), (13,)), (3, 2, 0, (), ())):
+        assert not tk6.in_envelope(*lay, 4)
+    assert tk6.team_for(64, 1, 0, (64,), (), 4) == 0
+
+
+def test_launch_rule_puts_many_socp_and_sdp_instances_on_an_sm():
+    """At the SOCP of the [conic] path and the SDP of psd side 4, f32, the rule's team gets more than two
+    instances per SM by shared memory (the eight-warp kernel held two), a one-warp team, and its shared
+    memory is the instance's working set with a pivot column and one psd workspace per warp."""
+    for lay in ((16, 0, 0, (17,), ()), (3, 0, 0, (4,), (4,))):
+        team = tk6.team_for(*lay, 4)
+        assert team == 1
+        assert tk6.instances_per_sm(*lay, 4, team) > 2
+        assert tk6.smem_bytes(*lay, 4, team) < tk6.smem_bytes(*lay, 4, 8)
+    # the eight-warp team's count is the kernel's earlier one (test_envelope_and_shared_memory), the
+    # smaller teams' differ by the pivot column (2 tile_max_n words) and the per-warp psd workspaces
+    assert tk6.smem_bytes(16, 0, 0, (17,), (), 4, 1) == 9160 - 4 * (256 - 80)
+    assert tk6.smem_bytes(3, 0, 0, (4,), (4,), 8, 2) == 14432 - 8 * ((256 - 128) + 6 * (5 * 16 + 4))

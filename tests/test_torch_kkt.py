@@ -222,3 +222,46 @@ def test_unported_methods_raise(problem):
     assert tkkt._auto_solve.host_syncs == syncs + 1  # 'auto' reads the LP count once
     with pytest.raises(ValueError, match="unknown solve method"):
         tkkt.qp_reverse(_tq(data), _ts(tight), seed, method="cholesky")
+
+
+def test_ldl_past_128_matches_jax_lu_route():
+    """Between N = 129 and the port's LDL' envelope (``chol.ldl_max_n``: 169
+    in f64) the reference's ``method="ldl"`` takes LU (``diffopt_tpu/ops/kkt.py``
+    switches past 128 rows) while the port keeps its LDL'; both solve the same
+    KKT system with two refinement passes, so the VJP and the JVP agree to
+    1e-8 (here N = 130: n = 100, m = 20, p = 10, B = 2, f64)."""
+    from diffopt_tpu import QPTangent
+    from diffopt_tpu_torch.ops.cuda import chol
+    from diffopt_tpu_torch.ops.cuda.pdip import solve_batched_fused
+
+    Bb, nb, mb, pb = 2, 100, 20, 10
+    rng = np.random.default_rng(12)
+    L = rng.normal(size=(Bb, nb, nb))
+    data = dict(
+        Q=L @ np.swapaxes(L, 1, 2) + nb * np.eye(nb), q=rng.normal(size=(Bb, nb)), A=rng.normal(size=(Bb, pb, nb)),
+        b=rng.normal(size=(Bb, pb)), G=rng.normal(size=(Bb, mb, nb)), h=rng.normal(size=(Bb, mb)) + 2.0,
+    )
+    tq = _tq(data)
+    assert 128 < nb + mb + pb <= chol.ldl_max_n(torch.float64) and tkkt._ldl_fits(tq)  # the port factors by LDL'
+    sol = dtt.convert.to_numpy(solve_batched_fused(tq, max_iters=30))  # the port's own solver, on the CPU
+    jq = QuadProgram(**{k: jnp.asarray(v) for k, v in data.items()})
+    seeds = [rng.normal(size=(Bb, k)) for k in (nb, mb, pb)]
+    jg, jadj = jax.jit(jax.vmap(
+        lambda q, s, a, b_, c: jkkt.qp_reverse(q, s, a, b_, c, method="ldl", refine_iters=2)
+    ))(jq, _js(sol), *map(jnp.asarray, seeds))
+    tg, tadj = tkkt.qp_reverse(tq, _ts(sol), *(torch.from_numpy(s.copy()) for s in seeds), method="ldl", refine_iters=2)
+    for name in ("dQ", "dq", "dA", "db", "dG", "dh"):
+        np.testing.assert_allclose(getattr(tg, name).numpy(), np.asarray(getattr(jg, name)), rtol=0, atol=1e-8,
+                                   err_msg=name)
+    for name in ("dz", "dlam", "dnu"):
+        np.testing.assert_allclose(getattr(tadj, name).numpy(), np.asarray(getattr(jadj, name)), rtol=0, atol=1e-8,
+                                   err_msg=name)
+    tan = _tangent(data, rng)
+    jd = jax.jit(jax.vmap(lambda q, s, t: jkkt.qp_forward(q, s, t, method="ldl", refine_iters=2)))(
+        jq, _js(sol), QPTangent(**{k: jnp.asarray(v) for k, v in tan.items()})
+    )
+    td = tkkt.qp_forward(tq, _ts(sol), dtt.convert.qptangent_from_numpy(tan, dtype=torch.float64, device="cpu"),
+                         method="ldl", refine_iters=2)
+    for name in ("dz", "dlam", "dnu"):
+        np.testing.assert_allclose(getattr(td, name).numpy(), np.asarray(getattr(jd, name)), rtol=0, atol=1e-8,
+                                   err_msg=name)

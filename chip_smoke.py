@@ -12,11 +12,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 3. kernels against their plain PyTorch versions on the card, at the shapes the
    two paths give them (fused solver and LDL' pair: n = 64, m = 32, p = 16,
    N = 112, k = 1; Cholesky pair: n = 64 and 16, k = 1 and 16), f32 at the
-   full batch and f64 at a smaller one, plus the fused solver's unstaged mode,
-   the routes past 128 rows, matrices that are not positive definite, and a
-   batch on which the fused solver runs on with mu == 0; each kernel is timed
-   beside its plain version and, where one PyTorch call computes the same
-   function, beside that call (a yardstick only);
+   full batch and f64 at a smaller one; the fused solver (K1) at every team
+   size that takes each shape (the headline: two and eight warps; n = 100,
+   m = 48, p = 24: eight; n = 32, m = 16, p = 8 and n = 40, m = 20, p = 10:
+   one, two and eight), timed by team, and a team that does not take a shape
+   refused; the routes past 128 rows, matrices that are not
+   positive definite, and a batch on which the fused solver runs on with
+   mu == 0; each kernel is timed beside its plain version and, where one
+   PyTorch call computes the same function, beside that call (a yardstick
+   only);
 4. main path: ``solve_qp_batched`` forward + backward on a random batch of
    dense QPs at full width, a warm-up and three timed steps; checks finite
    outputs and gradients, the converged share, the relative KKT residuals, the
@@ -54,8 +58,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    program and on the entropy family, the exp / pow DPi against a central
    difference of Pi, and a padded heterogeneous exp / pow batch;
 8. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``,
-   ``exp`` and ``{"kernels": [...]}`` (K1-K7), the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+   ``exp``, ``k6_teams``, ``k1_teams`` and ``{"kernels": [...]}`` (K1-K7),
+   the card's name and power limit, and as the last line ``{"ok": true,
+   "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -196,6 +201,107 @@ def kkt_systems(qp, sol):
     return K.contiguous()
 
 
+def k1_hold(qp, tag):
+    """K1 at every team size that takes the batch's shape, each against its plain version (run once), at
+    TOL_PDIP and with iteration counts more than one apart on at most 1%. Returns ``{team: (sol,
+    iterations, max abs diff)}``, the plain ``(sol, iterations)`` and the plain version's wall ms."""
+    from diffopt_tpu_torch.ops.cuda import pdip
+
+    B, n, m, p, item = qp.batch_size, qp.num_vars, qp.num_ineq, qp.num_eq, qp.Q.element_size()
+    tol = TOL_PDIP[qp.Q.dtype]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psol, pits = pdip.solve_batched_fused_plain(qp, max_iters=25, return_iters=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    held = {}
+    for team in (t for t in pdip.TEAMS if pdip.team_takes(n, m, p, item, t)):
+        sol, its = pdip.solve_batched_fused(qp, max_iters=25, return_iters=True, team=team)
+        # per-instance error over z, lam, nu, relative to 1 + the largest entry of the plain result
+        inst_err = torch.stack([
+            (getattr(sol, k) - getattr(psol, k)).abs().amax(dim=1) / (1.0 + getattr(psol, k).abs().amax(dim=1))
+            for k in ("z", "lam", "nu")
+        ]).amax(dim=0)
+        max_abs = max(float((getattr(sol, k) - getattr(psol, k)).abs().max()) for k in ("z", "lam", "nu"))
+        med, q99, worst = (float(torch.quantile(inst_err.double(), q)) for q in (0.5, 0.99, 1.0))
+        moved = float((its != pits).float().mean())
+        far = float(((its - pits).abs() > 1).float().mean())
+        label = f"pdip_fused {tag} n={n} m={m} p={p} team {team}"
+        print(
+            f"[kernels] {label} B={B} ({'staged' if pdip.stage_for(n, m, p, item, team) else 'unstaged'}): max abs diff"
+            f" {max_abs:.3e}; per-instance relative diff median {med:.3e} (tol {tol['median']:.0e}), 99% {q99:.3e}"
+            f" (tol {tol['q99']:.0e}), max {worst:.3e} (tol {tol['max']:.0e}); iterations mean"
+            f" {float(its.float().mean()):.2f} vs plain {float(pits.float().mean()):.2f}, differ on {moved:.4%} of"
+            f" instances, by more than one on {far:.4%}"
+        )
+        check(all(torch.isfinite(getattr(sol, k)).all() for k in ("z", "lam", "nu")), f"{label}: non-finite output")
+        check(
+            med <= tol["median"] and q99 <= tol["q99"] and worst <= tol["max"],
+            f"{label} disagrees with its plain version: median {med:.3e}, 99% {q99:.3e}, max {worst:.3e}",
+        )
+        check(far <= 0.01, f"{label}: iteration counts differ by more than one on {far:.3%}")
+        held[team] = (sol, its, max_abs)
+    check(pdip.team_for(n, m, p, item) in held, f"pdip_fused {tag}: the launch rule's team does not take the shape")
+    return held, (psol, pits), plain_ms
+
+
+def k1_shape_record(n, m, p, B, team, ms_by_team, plain_ms):
+    """One shape's entry of the k1_teams line: K1's ms and resident teams per SM by team (f32)."""
+    from diffopt_tpu_torch.ops.cuda import pdip
+
+    return {"n": n, "m": m, "p": p, "B": B, "team": team, "plain_ms": plain_ms,
+            "ms_by_team": {str(t): v for t, v in ms_by_team.items()},
+            "resident_by_team": {str(t): pdip.blocks_per_sm(n, m, p, torch.float32, t) for t in ms_by_team},
+            "staged_by_team": {str(t): pdip.stage_for(n, m, p, 4, t) for t in ms_by_team}}
+
+
+def k1_teams_text(n, m, p, ms_by_team):
+    from diffopt_tpu_torch.ops.cuda import pdip
+
+    return ", ".join(f"{t}: {ms:.3f} ({pdip.blocks_per_sm(n, m, p, torch.float32, t)} resident per SM,"
+                     f" {pdip.instances_per_sm(n, m, p, 4, t, pdip.stage_for(n, m, p, 4, t))} by the model)"
+                     for t, ms in ms_by_team.items())
+
+
+def phase_k1_teams(batch, gen):
+    """K1 at the shapes where its launch rule picks the other teams, each team that takes the shape against
+    the plain version in f32 and f64 and timed in f32: n = 100, m = 48, p = 24 (eight warps), n = 32,
+    m = 16, p = 8 (one warp; two and eight, which stage Q, G and A, take it too) and n = 40, m = 20,
+    p = 10 (the most rows one warp takes, where one and two warps meet). Then that a team which
+    does not take a shape is refused. Data from a generator of its own, so that the phases after this one
+    see the same data as without it. Returns the shapes' entries of the k1_teams line."""
+    from diffopt_tpu_torch.ops.cuda import pdip
+    from diffopt_tpu_torch.utils.testing import make_batch
+
+    tgen = torch.Generator(device=DEVICE)
+    tgen.manual_seed(gen.initial_seed() + 2)
+    record = {}
+    shapes = (("n100", (100, 48, 24), min(batch, 8192)), ("small", (32, 16, 8), min(batch, 4096)),
+              ("n40", (40, 20, 10), min(batch, 4096)))
+    for name, (n, m, p), B in shapes:
+        for dtype, Bd in ((torch.float32, B), (torch.float64, min(B, 1024))):
+            qp = make_batch(Bd, n, m, p, dtype, DEVICE, tgen)
+            held, _, plain_ms = k1_hold(qp, "f32" if dtype == torch.float32 else "f64")
+            if dtype == torch.float32:
+                team = pdip.team_for(n, m, p, 4)
+                ms_by_team = {t: time_ms(lambda: pdip.solve_batched_fused(qp, max_iters=25, team=t), reps=3)
+                              for t in held}
+                record[name] = k1_shape_record(n, m, p, B, team, ms_by_team, plain_ms)
+                print(f"[kernels] pdip_fused {name} f32 B={B} n={n} m={m} p={p}: ms by team "
+                      + k1_teams_text(n, m, p, ms_by_team) + f"; the launch rule picks {team}")
+            del qp, held
+    # a team that does not take a shape is refused, never replaced: n = 64 is past one warp's tiles
+    qp = make_batch(4, N_VARS, N_INEQ, N_EQ, torch.float32, DEVICE, tgen)
+    refused = False
+    try:
+        pdip.solve_batched_fused(qp, team=1)
+    except ValueError:
+        refused = True
+    check(refused, "pdip_fused: a team of one warp took n = 64")
+    print("[kernels] pdip_fused: a team of one warp at n = 64 is refused (ValueError), as it must be")
+    return record
+
+
 def phase_kernels(batch, gen):
     """Each kernel against its plain version; returns the entries of the ``kernels`` line."""
     from diffopt_tpu_torch.ops.cuda import chol, pdip
@@ -208,46 +314,26 @@ def phase_kernels(batch, gen):
         main = dtype == torch.float32
         qp = make_batch(B, n, m, p, dtype, DEVICE, gen)
 
-        # --- K1: fused PDIP ---------------------------------------------------
-        sol, its = pdip.solve_batched_fused(qp, max_iters=25, return_iters=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        psol, pits = pdip.solve_batched_fused_plain(qp, max_iters=25, return_iters=True)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        # per-instance error over z, lam, nu, relative to 1 + the largest entry of the plain result
-        inst_err = torch.stack([
-            (getattr(sol, k) - getattr(psol, k)).abs().amax(dim=1) / (1.0 + getattr(psol, k).abs().amax(dim=1))
-            for k in ("z", "lam", "nu")
-        ]).amax(dim=0)
-        max_abs = max(float((getattr(sol, k) - getattr(psol, k)).abs().max()) for k in ("z", "lam", "nu"))
-        med, q99, worst = (float(torch.quantile(inst_err, q)) for q in (0.5, 0.99, 1.0))
-        moved = float((its != pits).float().mean())
-        far = float(((its - pits).abs() > 1).float().mean())
-        tol = TOL_PDIP[dtype]
-        print(
-            f"[kernels] pdip_fused {tag} B={B}: max abs diff {max_abs:.3e}; per-instance relative diff median {med:.3e}"
-            f" (tol {tol['median']:.0e}), 99% {q99:.3e} (tol {tol['q99']:.0e}), max {worst:.3e} (tol {tol['max']:.0e});"
-            f" iterations mean {float(its.float().mean()):.2f} vs plain {float(pits.float().mean()):.2f},"
-            f" differ on {moved:.4%} of instances, by more than one on {far:.4%}"
-        )
-        check(all(torch.isfinite(getattr(sol, k)).all() for k in ("z", "lam", "nu")), "pdip_fused: non-finite output")
-        check(
-            med <= tol["median"] and q99 <= tol["q99"] and worst <= tol["max"],
-            f"pdip_fused {tag} disagrees with its plain version: median {med:.3e}, 99% {q99:.3e}, max {worst:.3e}",
-        )
-        check(far <= 0.01, f"pdip_fused {tag}: iteration counts differ by more than one on {far:.3%}")
+        # --- K1: fused PDIP, at every team size that takes the shape -----------
+        held, (psol, pits), plain_ms = k1_hold(qp, tag)
+        team = pdip.team_for(n, m, p, qp.Q.element_size())
+        sol, its, max_abs = held[team]
         if main:
             item = qp.Q.element_size()
-            ms = time_ms(lambda: pdip.solve_batched_fused(qp, max_iters=25), reps=3)
+            ms_by_team = {t: time_ms(lambda: pdip.solve_batched_fused(qp, max_iters=25, team=t), reps=3) for t in held}
             bytes_moved = B * item * (n * n + (m + p) * (n + 1) + n + (n + 2 * m + p) + 1)
             flops = float((its.double() + 1).sum()) * pdip_flops_per_iteration(n, m, p)
             b_ms, b_by = bound(bytes_moved, flops)
             entries["pdip_fused"] = dict(
                 name="pdip_fused", route="cuda", source="diffopt_tpu_torch/csrc/pdip.cu",
-                replaces="diffopt_tpu/ops/pallas/pdip.py:204", max_abs_err=max_abs, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                replaces="diffopt_tpu/ops/pallas/pdip.py:204", max_abs_err=max_abs, ms=ms_by_team[team],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, team_warps=team,
+                ms_by_team={str(t): v for t, v in ms_by_team.items()},
+                k1_headline=k1_shape_record(n, m, p, B, team, ms_by_team, plain_ms),
             )
+            print(f"[kernels] pdip_fused {tag} B={B}: {ms_by_team[team]:.3f} ms with a team of {team} warps (bound"
+                  f" {b_ms:.3f} ms by {b_by}); ms by team " + k1_teams_text(n, m, p, ms_by_team))
+        del held
 
         # --- K2: LDL' factor --------------------------------------------------
         K = kkt_systems(qp, sol)
@@ -343,7 +429,7 @@ def phase_kernels(batch, gen):
     # --- K1 off the main path's shape: Q, G, A left in device memory (working set too large to
     # stage beside H in f64) ---
     n2, m2, p2, B2 = 100, 48, 24, 256
-    check(pdip.smem_bytes(n2, m2, p2, 8, stage=True) > pdip.MAX_SMEM_BYTES, "unexpected staging mode")
+    check(not pdip.stage_for(n2, m2, p2, 8, pdip.team_for(n2, m2, p2, 8)), "unexpected staging mode")
     qp = make_batch(B2, n2, m2, p2, torch.float64, DEVICE, gen)
     sol = pdip.solve_batched_fused(qp, max_iters=25)
     psol = pdip.solve_batched_fused_plain(qp, max_iters=25)
@@ -351,7 +437,8 @@ def phase_kernels(batch, gen):
         (getattr(sol, k) - getattr(psol, k)).abs().amax(dim=1) / (1.0 + getattr(psol, k).abs().amax(dim=1))
         for k in ("z", "lam", "nu")
     ]).max())
-    print(f"[kernels] pdip_fused f64 unstaged B={B2} n={n2} m={m2} p={p2}: max per-instance relative diff {worst:.3e}"
+    print(f"[kernels] pdip_fused f64 unstaged B={B2} n={n2} m={m2} p={p2} (a team of {pdip.team_for(n2, m2, p2, 8)}"
+          f" warps): max per-instance relative diff {worst:.3e}"
           " (tol 1e-06)")
     check(worst <= 1e-6, f"pdip_fused at n = {n2} disagrees with its plain version")
     return entries
@@ -1862,6 +1949,7 @@ def main(argv=None):
     t_start = time.perf_counter()
     phase_build()
     entries = phase_kernels(args.batch, gen)
+    k1_teams = {"headline": entries["pdip_fused"].pop("k1_headline"), **phase_k1_teams(args.batch, gen)}
     entries.update(phase_kernels_chol(args.batch, gen))
     entries.update(phase_kernels_conic(args.batch, gen))
     entries.update(phase_kernels_ns(args.batch, gen))
@@ -1903,8 +1991,9 @@ def main(argv=None):
           f" B = {exp['batch']}) on {card}")
     print(json.dumps({"exp": {**exp, "ns_pdip_agreement": entries["ns_pdip"].pop("agreement"), "card": card}}))
     print(json.dumps({"k6_teams": {**entries["conic_pdip"].pop("k6_teams"), "card": card}}))
-    k6_keys = ("team_warps", "ms_by_team")  # K6's launch rule and its time at every team size
-    print(json.dumps({"kernels": [{k: e[k] for k in keys + k6_keys if k in keys or k in e} for e in entries.values()]}))
+    print(json.dumps({"k1_teams": {**k1_teams, "card": card}}))
+    team_keys = ("team_warps", "ms_by_team")  # K1's and K6's launch rule and their time at every team size
+    print(json.dumps({"kernels": [{k: e[k] for k in keys + team_keys if k in keys or k in e} for e in entries.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -923,10 +923,6 @@ inline bool make_layout(Layout& lay, int n, int p, int l, int nsoc, const int* s
   return true;
 }
 
-// the team sizes the kernel is built for (a team of four warps takes the same
-// rows as one of two and was slower at every layout timed: PERF.md)
-constexpr int kTeams[] = {1, 2, 8};
-
 // Room for the kernel's static shared memory (its pointer table Conic<T, TW>),
 // mirrored by ops/cuda/conic_pdip.py
 constexpr size_t kStaticSmem = 1024;
@@ -948,28 +944,6 @@ inline int conic_team(const Layout& lay, int itemsize) {
   return 0;
 }
 
-// f(std::integral_constant<int, TW>) for tw in {1, 2, 8}
-template <class F>
-int with_team(int tw, F&& f) {
-  switch (tw) {
-    case 1: return f(std::integral_constant<int, 1>{});
-    case 2: return f(std::integral_constant<int, 2>{});
-    case 8: return f(std::integral_constant<int, 8>{});
-    default: return int(cudaErrorInvalidValue);
-  }
-}
-
-// the instantiation's shared-memory attributes: room for smem bytes, and the
-// SM's split between L1 and shared memory all to shared memory, so that as many
-// teams are resident as their working sets allow
-template <typename T, int TW>
-cudaError_t conic_attributes(size_t smem) {
-  cudaError_t e = cudaFuncSetAttribute(conic_kernel<T, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(conic_kernel<T, TW>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              int(cudaSharedmemCarveoutMaxShared));
-}
-
 template <typename T>
 int launch_conic(const void* c, const void* bE, const void* bC, const void* AE, const void* AC, void* x,
                  void* yE, void* yC, void* s, void* it, void* pres, void* dres, int B, int n, int p, int l,
@@ -983,7 +957,7 @@ int launch_conic(const void* c, const void* bE, const void* bC, const void* AE, 
   return with_team(tw, [&](auto tc) {
     constexpr int TW = decltype(tc)::value;
     const size_t smem = conic_smem_bytes(lay, int(sizeof(T)), TW);
-    cudaError_t e = conic_attributes<T, TW>(smem);
+    cudaError_t e = smem_attributes(conic_kernel<T, TW>, smem);
     if (e != cudaSuccess) return int(e);
     conic_kernel<T, TW><<<B, 32 * TW, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(c), static_cast<const T*>(bE), static_cast<const T*>(bC),
@@ -1002,7 +976,7 @@ int conic_blocks_per_sm(const Layout& lay, int tw) {
   return with_team(tw, [&](auto tc) {
     constexpr int TW = decltype(tc)::value;
     const size_t smem = conic_smem_bytes(lay, int(sizeof(T)), TW);
-    cudaError_t e = conic_attributes<T, TW>(smem);
+    cudaError_t e = smem_attributes(conic_kernel<T, TW>, smem);
     int blocks = 0;
     if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, conic_kernel<T, TW>, 32 * TW, smem);
     return e == cudaSuccess ? blocks : -int(e);

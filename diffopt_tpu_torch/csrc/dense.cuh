@@ -1,8 +1,9 @@
 // Dense building blocks shared by the kernels of this package: Cholesky / LDL'
 // factorisations and triangular substitutions on a matrix held in shared
 // memory, plus warp reductions. One thread block works on one problem
-// instance: kThreads threads in K1-K5 and K7; a team of 1, 2 or 8 warps in
-// K6 (Team below), whose factorisation runs on the team's own thread grid.
+// instance: kThreads threads in K2-K5 and K7; a team of 1, 2 or 8 warps in
+// K1 and K6 (Team below), whose factorisation runs on the team's own thread
+// grid.
 //
 // Two scopes: a factorisation has O(n^2) independent updates per step and is
 // run by the whole block (one block barrier per step), with the matrix in
@@ -30,8 +31,34 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // Shared memory one block can use on sm_90 (227 KB); above 48 KB it must be
 // dynamic and the kernel needs cudaFuncAttributeMaxDynamicSharedMemorySize.
 constexpr size_t kMaxSmemBytes = 232448;
+// Shared memory of one SM (228 KB), of which each resident block takes 1 KB for
+// the system, and the SM's limits on resident blocks and warps.
+constexpr size_t kSmSmemBytes = 233472, kBlockReservedSmem = 1024;
+constexpr int kSmMaxBlocks = 32, kSmMaxWarps = 64;
 
 __host__ __device__ inline int odd_stride(int n) { return n | 1; }
+
+// The running kernel's dynamic shared memory: every kernel's extern __shared__
+// array starts at the same address.
+extern __shared__ __align__(16) unsigned char dk_smem[];
+
+// A pointer into the dynamic shared memory held as an index into dk_smem: an
+// access through it compiles to LDS / STS with a 32-bit address, where a
+// generic pointer to the same word compiles to LD / ST with 64-bit address
+// arithmetic -- which, on a chain whose every step waits on such a load, is
+// most of the step.
+template <typename T>
+struct SPtr {
+  int off;
+  __device__ T& operator[](int i) const { return reinterpret_cast<T*>(dk_smem)[off + i]; }
+  __device__ SPtr operator+(int k) const { return SPtr{off + k}; }
+};
+
+// whether a pivot array was given (the substitutions' unit-diagonal case passes nullptr)
+template <typename T>
+__device__ inline bool given(const T* p) { return p != nullptr; }
+template <typename T>
+__device__ inline bool given(SPtr<T>) { return true; }
 
 // NaN-propagating max / min (fmax / fmin drop a NaN operand; the reference's
 // reductions keep it, and the solver's guards rely on that).
@@ -54,14 +81,6 @@ template <typename T>
 __device__ inline T warp_min(T a) {
   for (int o = 16; o > 0; o >>= 1) a = nan_min(a, __shfl_xor_sync(kFullMask, a, o));
   return a;
-}
-
-// Dot product of two length-len vectors by one warp; every lane gets the sum.
-template <typename T>
-__device__ inline T warp_dot(const T* __restrict__ a, const T* __restrict__ b, int len, int lane) {
-  T acc = T(0);
-  for (int i = lane; i < len; i += 32) acc += a[i] * b[i];
-  return warp_sum(acc);
 }
 
 // Right-looking unpivoted LDL' factorisation M = L D L' of the n x n matrix M
@@ -134,12 +153,38 @@ struct Team {
   }
 };
 
+// the team sizes the team kernels (K1, K6) are built for: four warps would hold
+// the same 64 rows as two, and were slower than two at every layout of K6 timed
+constexpr int kTeams[] = {1, 2, 8};
+
+// f(std::integral_constant<int, TW>) for tw in {1, 2, 8}
+template <class F>
+int with_team(int tw, F&& f) {
+  switch (tw) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// A kernel's shared-memory attributes: room for smem bytes of dynamic shared
+// memory, and the SM's split between L1 and shared memory all to shared
+// memory, so that as many blocks are resident as their working sets allow.
+template <class K>
+cudaError_t smem_attributes(K* kernel, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              int(cudaSharedmemCarveoutMaxShared));
+}
+
 // ---- register-tiled factorisation --------------------------------------------
 //
 // factor_lower spends ten instructions on addresses and predicates for every
 // multiply-add, and every operand comes from shared memory. Here the matrix
 // lives in REGISTERS for the whole factorisation: the team's threads form a
-// kY x kX grid (TileGrid below; 16 x 16 for the 256 threads of K1-K5 and K7),
+// kY x kX grid (TileGrid below; 16 x 16 for the 256 threads of K2-K5 and K7),
 // thread (ty, tx) = (tid / kX, tid % kX) owns the entries (i, k) with
 // i = ty + kY a, k = tx + kX b (a cyclic map, so the trailing matrix stays
 // spread over all threads as it shrinks), a < RY, b < RX, kY RY = kX RX, of
@@ -163,7 +208,7 @@ template <> struct TileGrid<8> { static constexpr int kY = 16, kX = 16, kNumCove
 __host__ __device__ constexpr int tile_max_n(int tw) { return tw == 1 ? 40 : (tw == 8 ? 128 : 64); }
 __host__ __device__ constexpr int colbuf_words(int tw) { return 2 * tile_max_n(tw); }
 
-constexpr int kTileGrid = 16;  // the 256-thread grid of K1-K5 and K7
+constexpr int kTileGrid = 16;  // the 256-thread grid of K2-K5 and K7
 static_assert(kTileGrid * kTileGrid == kThreads, "the tile map needs a 16 x 16 thread grid");
 constexpr int kMaxTileRows = 8;                                 // n <= 128
 constexpr int kColbufWords = 2 * kTileGrid * kMaxTileRows;      // double-buffered pivot column
@@ -188,7 +233,7 @@ __device__ inline bool dispatch_grid(int n, F&& f) {
   }
 }
 
-// The 256-thread form: kRows in {2, 4, 8} (n <= 128) for K1-K5 and K7.
+// The 256-thread form: kRows in {2, 4, 8} (n <= 128) for K2-K5 and K7.
 template <typename F>
 __device__ inline bool dispatch_tile(int n, F&& f) { return dispatch_grid<8>(n, f); }
 
@@ -199,13 +244,23 @@ __host__ __device__ constexpr bool tile_live(int a, int b) { return kY * a + kY 
 // Eliminates the n x n symmetric matrix held in the tiles t of a team of TW
 // warps (entries outside n x n must be zero): on return diag[j] = pivot j and
 // column j of t holds L[i][j] * pivot j (LDL' with the column scaling left to
-// the caller, as in factor_lower; store_chol_tile turns it into a Cholesky
-// factor). colbuf: colbuf_words(TW) of shared memory. Called by every thread
-// of the team; ends in the team's barrier.
-template <typename T, int TW, int RY, int RX>
-__device__ void factor_grid(T (&t)[RY][RX], int n, T* __restrict__ diag, T* __restrict__ colbuf) {
-  constexpr int kY = TileGrid<TW>::kY, kX = TileGrid<TW>::kX, kHalf = tile_max_n(TW);
-  static_assert(kY * RY == kX * RX && kX * RX <= kHalf, "the tiles cover a square of at most tile_max_n rows");
+// the caller, as in factor_lower; store_chol_grid turns it into a Cholesky
+// factor). colbuf: colbuf_words(TW) of shared memory; diag and colbuf are
+// plain pointers or SPtr. Called by every thread of the team; ends in the
+// team's barrier.
+//
+// A rectangular tile set (kY RY > kX RX) holds rows below the square: rows n
+// and on of t are then eliminated by the same n column steps, so that a block
+// B stacked under the matrix, [M; B], leaves as B L'^-1 with column j times
+// pivot j (the forward substitution of B' against L, its products subtracted
+// in the same order of columns). colbuf then needs 2 max(tile_max_n(TW), kY RY)
+// words.
+template <typename T, int TW, int RY, int RX, typename P>
+__device__ void factor_grid(T (&t)[RY][RX], int n, P diag, P colbuf) {
+  constexpr int kY = TileGrid<TW>::kY, kX = TileGrid<TW>::kX;
+  constexpr int kHalf = kY * RY > tile_max_n(TW) ? kY * RY : tile_max_n(TW);
+  static_assert(kY * RY >= kX * RX && kX * RX <= tile_max_n(TW),
+                "the tiles cover at most tile_max_n columns, and at least as many rows");
   const int tx = threadIdx.x % kX, ty = threadIdx.x / kX;
 #pragma unroll
   for (int bj = 0; bj < RX; ++bj) {
@@ -213,7 +268,7 @@ __device__ void factor_grid(T (&t)[RY][RX], int n, T* __restrict__ diag, T* __re
     const int jend = min(kX, n - kX * bj);
     for (int jl = 0; jl < jend; ++jl) {
       const int j = kX * bj + jl;
-      T* buf = colbuf + (j & 1) * kHalf;
+      const P buf = colbuf + (j & 1) * kHalf;
       if (tx == jl) {
 #pragma unroll
         for (int a = 0; a < RY; ++a)
@@ -244,35 +299,37 @@ __device__ void factor_grid(T (&t)[RY][RX], int n, T* __restrict__ diag, T* __re
   Team<TW>::sync();
 }
 
-// The 256-thread form (16 x 16 grid, kRows x kRows tiles, b <= a kept) of K1-K5 and K7.
+// The 256-thread form (16 x 16 grid, kRows x kRows tiles, b <= a kept) of K2-K5 and K7.
 template <typename T, int kRows>
 __device__ void factor_tile(T (&t)[kRows][kRows], int n, T* __restrict__ diag, T* __restrict__ colbuf) {
   factor_grid<T, 8, kRows, kRows>(t, n, diag, colbuf);
 }
 
-// Writes the Cholesky factor out of factor_tile's result: the lower triangle of
-// M (shared, row stride ld) gets L, diag[j] becomes 1 / L[j][j]. Ends in
-// __syncthreads.
-template <typename T, int kRows>
-__device__ void store_chol_tile(const T (&t)[kRows][kRows], int n, T* __restrict__ M, int ld,
-                                T* __restrict__ diag) {
-  const int tx = threadIdx.x & (kTileGrid - 1), ty = threadIdx.x / kTileGrid;
-  T rk[kRows];
+// Writes the Cholesky factor out of factor_grid's result on a team of TW
+// warps: rows i < rows of M (shared, row stride ld) get L[i][k] for k < n,
+// k <= i (rows past n: the block stacked under the matrix, scaled the same
+// way), and diag[j] becomes 1 / L[j][j]. Ends in the team's barrier.
+template <typename T, int TW, int RY, int RX, typename P>
+__device__ void store_chol_grid(const T (&t)[RY][RX], int n, int rows, P M, int ld, P diag) {
+  constexpr int kY = TileGrid<TW>::kY, kX = TileGrid<TW>::kX;
+  const int tx = threadIdx.x % kX, ty = threadIdx.x / kX;
+  T rk[RX];
 #pragma unroll
-  for (int b = 0; b < kRows; ++b) {
-    const int k = tx + kTileGrid * b;
+  for (int b = 0; b < RX; ++b) {
+    const int k = tx + kX * b;
     rk[b] = k < n ? rsqrt(diag[k]) : T(0);
   }
 #pragma unroll
-  for (int a = 0; a < kRows; ++a)
+  for (int a = 0; a < RY; ++a)
 #pragma unroll
-    for (int b = 0; b <= a; ++b) {
-      const int i = ty + kTileGrid * a, k = tx + kTileGrid * b;
-      if (i < n && k <= i) M[i * ld + k] = t[a][b] * rk[b];
+    for (int b = 0; b < RX; ++b) {
+      if (!tile_live<kY, kX>(a, b)) continue;
+      const int i = ty + kY * a, k = tx + kX * b;
+      if (i < rows && k < n && k <= i) M[i * ld + k] = t[a][b] * rk[b];
     }
-  __syncthreads();  // every thread has read the pivots
-  for (int j = threadIdx.x; j < n; j += kThreads) diag[j] = rsqrt(diag[j]);
-  __syncthreads();
+  Team<TW>::sync();  // every thread has read the pivots
+  for (int j = threadIdx.x; j < n; j += Team<TW>::kThreads) diag[j] = rsqrt(diag[j]);
+  Team<TW>::sync();
 }
 
 // The substitutions below work on one right-hand side x whose entries lie xs
@@ -288,16 +345,11 @@ __device__ void store_chol_tile(const T (&t)[kRows][kRows], int n, T* __restrict
 // through shared memory instead (store, warp barrier, load) costs ten times
 // as much per step.
 
-// x <- L^-1 x for n <= 32 kRows, column-oriented.
-template <typename T, int kRows>
-__device__ __noinline__ void warp_forward_sub_rows(const T* __restrict__ L, int ld, int n, T* x, int xs,
-                                                   const T* __restrict__ piv, int lane) {
-  T xr[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = r * 32 + lane;
-    xr[r] = i < n ? x[i * xs] : T(0);
-  }
+// x <- L^-1 x for n <= 32 kRows, column-oriented, x in registers (lane l
+// holds entry r * 32 + l in xr[r]); called by one warp. L and piv are plain
+// pointers or SPtr.
+template <typename T, int kRows, typename PL, typename PP>
+__device__ __forceinline__ void warp_forward_sub_regs(PL L, int ld, int n, T (&xr)[kRows], PP piv, int lane) {
 #pragma unroll
   for (int rj = 0; rj < kRows; ++rj) {
     const int jend = min(32, n - rj * 32);
@@ -305,7 +357,7 @@ __device__ __noinline__ void warp_forward_sub_rows(const T* __restrict__ L, int 
     for (int jl = 0; jl < jend; ++jl) {
       const int j = rj * 32 + jl;
       T yj = __shfl_sync(kFullMask, xr[rj], jl);
-      if (piv) {
+      if (given(piv)) {
         yj *= piv[j];
         if (lane == jl) xr[rj] = yj;
       }
@@ -316,24 +368,11 @@ __device__ __noinline__ void warp_forward_sub_rows(const T* __restrict__ L, int 
       }
     }
   }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = r * 32 + lane;
-    if (i < n) x[i * xs] = xr[r];
-  }
-  __syncwarp();
 }
 
-// x <- L'^-1 x for n <= 32 kRows.
-template <typename T, int kRows>
-__device__ __noinline__ void warp_backward_sub_rows(const T* __restrict__ L, int ld, int n, T* x, int xs,
-                                                    const T* __restrict__ piv, int lane) {
-  T xr[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = r * 32 + lane;
-    xr[r] = i < n ? x[i * xs] : T(0);
-  }
+// x <- L'^-1 x for n <= 32 kRows, x in registers as above.
+template <typename T, int kRows, typename PL, typename PP>
+__device__ __forceinline__ void warp_backward_sub_regs(PL L, int ld, int n, T (&xr)[kRows], PP piv, int lane) {
 #pragma unroll
   for (int rj = kRows - 1; rj >= 0; --rj) {
     const int jend = min(32, n - rj * 32);
@@ -341,7 +380,7 @@ __device__ __noinline__ void warp_backward_sub_rows(const T* __restrict__ L, int
     for (int jl = jend - 1; jl >= 0; --jl) {
       const int j = rj * 32 + jl;
       T xj = __shfl_sync(kFullMask, xr[rj], jl);
-      if (piv) {
+      if (given(piv)) {
         xj *= piv[j];
         if (lane == jl) xr[rj] = xj;
       }
@@ -352,6 +391,38 @@ __device__ __noinline__ void warp_backward_sub_rows(const T* __restrict__ L, int
       }
     }
   }
+}
+
+// x <- L^-1 x for n <= 32 kRows, x in memory (entries xs apart).
+template <typename T, int kRows>
+__device__ __noinline__ void warp_forward_sub_rows(const T* __restrict__ L, int ld, int n, T* x, int xs,
+                                                   const T* __restrict__ piv, int lane) {
+  T xr[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = r * 32 + lane;
+    xr[r] = i < n ? x[i * xs] : T(0);
+  }
+  warp_forward_sub_regs(L, ld, n, xr, piv, lane);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = r * 32 + lane;
+    if (i < n) x[i * xs] = xr[r];
+  }
+  __syncwarp();
+}
+
+// x <- L'^-1 x for n <= 32 kRows, x in memory.
+template <typename T, int kRows>
+__device__ __noinline__ void warp_backward_sub_rows(const T* __restrict__ L, int ld, int n, T* x, int xs,
+                                                    const T* __restrict__ piv, int lane) {
+  T xr[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = r * 32 + lane;
+    xr[r] = i < n ? x[i * xs] : T(0);
+  }
+  warp_backward_sub_regs(L, ld, n, xr, piv, lane);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = r * 32 + lane;

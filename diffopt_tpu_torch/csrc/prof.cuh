@@ -3,7 +3,8 @@
 // -DDK_PROFILE; otherwise every macro vanishes and the package's own build
 // carries no trace of them.
 //
-// DK_PROF_START() opens a block's clock; DK_PROF(k) is a block barrier, then
+// DK_PROF_START() opens a block's clock (DK_PROF_RESTART() sets it anew after a
+// call whose phases were counted on their own); DK_PROF(k) is a block barrier, then
 // thread 0 adds the cycles since the previous probe to counter k in device
 // memory; DK_PROF_ADD(k, v) adds v to counter k. The barrier makes a probe a
 // phase boundary: it costs a few percent, and the shares are what to read.
@@ -18,6 +19,7 @@ constexpr int kProfCounters = 16;
 #ifdef DK_PROFILE
 __device__ unsigned long long g_prof[kProfCounters];
 #define DK_PROF_START() long long t0_ = clock64()
+#define DK_PROF_RESTART() t0_ = clock64()
 #define DK_PROF(k)                                               \
   do {                                                           \
     __syncthreads();                                             \
@@ -39,6 +41,7 @@ inline int prof_zero() {
 }
 #else
 #define DK_PROF_START() do {} while (0)
+#define DK_PROF_RESTART() do {} while (0)
 #define DK_PROF(k) do {} while (0)
 #define DK_PROF_ADD(k, v) do {} while (0)
 #endif

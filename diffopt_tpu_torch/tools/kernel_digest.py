@@ -1,0 +1,105 @@
+"""SHA-256 digests of the outputs of kernels K2-K7 on fixed batches.
+
+    python3 -m diffopt_tpu_torch.tools.kernel_digest
+
+Two builds whose kernels do the same arithmetic in the same order print the
+same digests; so this shows, bit for bit, that an edit to code the kernels
+share (``csrc/dense.cuh``, ``csrc/ipm.cuh``) left a kernel's results as they
+were. Run it in two checkouts, in one call on one card, and compare the lines
+(to run it against a checkout that lacks it: ``PYTHONPATH=<checkout> python3
+<this file>``). Every batch is made on the card from a seed: K2 / K3 on
+quasi-definite matrices of N = 112, K4 / K5 on SPD matrices of n = 64 and 34,
+K6 on the SOCP (n = 16, SOC(17)) in f32 and f64 and the SDP of psd side 4,
+K7 on the entropy family (k = 3) in f32 and f64 and the dual-exp family in
+f64.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import torch
+
+DEVICE = "cuda"
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _gen(seed):
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    return g
+
+
+def _dual_exp(B, dtype, gen):
+    from diffopt_tpu_torch import ConeProgram, ConeSpec
+
+    A = torch.zeros(B, 4, 2, dtype=dtype, device=DEVICE)
+    A[:, 0, 1] = 1.0
+    A[:, 1, 0] = -1.0
+    b = torch.zeros(B, 4, dtype=dtype, device=DEVICE)
+    b[:, 0] = 1.0
+    b[:, 2:] = 0.5 + 1.5 * torch.rand(B, 2, dtype=dtype, device=DEVICE, generator=gen)
+    c = torch.zeros(B, 2, dtype=dtype, device=DEVICE)
+    c[:, 0] = 1.0
+    return ConeProgram(A, b, c, ConeSpec([("zero", 1), ("dual_exp", 3)]))
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_digest: no CUDA device")
+    from diffopt_tpu_torch.ops.cuda import chol, conic_pdip, ns_pdip
+    from diffopt_tpu_torch.solvers import conic_ipm
+    from diffopt_tpu_torch.utils.testing import make_entropy_batch, make_sdp_batch, make_socp_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dt in (torch.float32, torch.float64):
+        tag = "f32" if dt == torch.float32 else "f64"
+        gen = _gen(1)
+        N, B = 112, 4096
+        M = torch.randn(B, N, N, dtype=dt, device=DEVICE, generator=gen)
+        K = M @ M.transpose(1, 2) / N + torch.eye(N, dtype=dt, device=DEVICE)
+        K[:, 80:, 80:] *= -1.0
+        K = torch.tril(K) + torch.tril(K, -1).transpose(1, 2)
+        L, d = chol.ldl_batched(K)
+        rhs = torch.randn(B, N, 3, dtype=dt, device=DEVICE, generator=gen)
+        print(f"[digest] K2 ldl_factor {tag} N={N}: {digest(L, d)}")
+        print(f"[digest] K3 ldl_solve {tag} N={N} k=3: {digest(chol.ldl_solve_batched(L, d, rhs))}")
+        for n in (64, 34):
+            M = torch.randn(B, n, n, dtype=dt, device=DEVICE, generator=gen)
+            H = M @ M.transpose(1, 2) / n + torch.eye(n, dtype=dt, device=DEVICE)
+            Lc = chol.cholesky_batched(H)
+            r = torch.randn(B, n, 16, dtype=dt, device=DEVICE, generator=gen)
+            print(f"[digest] K4 chol_factor {tag} n={n}: {digest(Lc)}")
+            print(f"[digest] K5 chol_solve {tag} n={n} k=1, 16: "
+                  f"{digest(chol.cholesky_solve_batched(Lc, r[..., :1]), chol.cholesky_solve_batched(Lc, r))}")
+    cases = [
+        ("SOCP f32", make_socp_batch(8192, n=16, seed=1, device=DEVICE)),
+        ("SOCP f64", make_socp_batch(2048, n=16, seed=2, dtype=torch.float64, device=DEVICE)),
+        ("SDP side 4 f32", make_sdp_batch(2048, 4, seed=3, device=DEVICE)),
+    ]
+    for label, cp in cases:
+        data, lay, _ = conic_ipm.internal_rows(cp)
+        n, (p, l, socs, psds) = cp.num_vars, lay
+        for team in conic_pdip.TEAMS:
+            if conic_pdip.team_takes(n, p, l, socs, psds, cp.A.element_size(), team):
+                out = conic_pdip.solve_tile_fused(*data, lay, max_iters=50, tol=5e-6, team=team)
+                print(f"[digest] K6 conic_pdip {label} team {team}: {digest(*out)}")
+    for label, cp in (("entropy f32", make_entropy_batch(16384, k=3, seed=0, device=DEVICE)),
+                      ("entropy f64", make_entropy_batch(2048, k=3, seed=1, dtype=torch.float64, device=DEVICE)),
+                      ("dual_exp f64", _dual_exp(1024, torch.float64, _gen(11)))):
+        R, p, l, socs, _, ns = conic_ipm._row_transform(cp.cones, allow_ns=True)
+        R = torch.as_tensor(R, dtype=cp.A.dtype, device=DEVICE)
+        A = torch.einsum("ij,bjk->bik", R, cp.A)
+        b = cp.b @ R.T
+        out = ns_pdip.solve_tile_fused_ns(cp.c, b[:, :p], b[:, p:], A[:, :p], A[:, p:], (p, l, socs, ns))
+        print(f"[digest] K7 ns_pdip {label}: {digest(*out)}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,24 @@
-"""Cycle counts of the fused PDIP kernel's phases, per block.
+"""Cycle counts of the fused PDIP kernel's (K1) phases, per instance.
 
-    python3 -m diffopt_tpu_torch.tools.pdip_phase_cycles [--batch 32768]
+    python3 -m diffopt_tpu_torch.tools.pdip_phase_cycles [--shape 64 32 16] [--team 0 2 8] [--batch B]
 
 Where no kernel profiler can be used this is the substitute: ``csrc/pdip.cu``
-carries ``DK_PROF`` probes after each phase (a block barrier, then thread 0
-adds the cycles since the last probe to a counter in device memory) that
-compile to nothing in the package's own build. This script compiles the source
-once more with ``-DDK_PROFILE`` into the build directory
-(``ops/cuda/_build.py::variant``) and runs it once on
-the main path's shape (n = 64, m = 32, p = 16, f32). The probes' barriers cost
-a few percent; the shares are what to read.
+carries ``DK_PROF`` probes (``csrc/prof.cuh``) after each phase (a barrier,
+then one thread adds the cycles since the last probe to a counter in device
+memory) that compile to nothing in the package's own build. This script
+compiles the source once more with ``-DDK_PROFILE`` into the build directory
+(``ops/cuda/_build.py::variant``) and runs the package's wrapper on that
+build, once on each shape (n m p; default the headline 64 32 16 at B = 32768
+and 100 48 24 at B = 8192) and team size asked for (``--team 0``, the
+default, is the launch rule's team), f32, on the batches of
+``utils/testing.py::make_batch`` at ``max_iters=25``. It prints the cycles
+per instance by phase, absolute and as shares, the teams resident per SM (the
+occupancy calculator), the kernel's time in the package's own build beside
+the probed one, and what ptxas reported for each instantiation. Cycles are
+counted per instance from its team's start to its end, so they include the
+time its warps wait while other teams on the same SM run: the cycles of two
+team sizes differ by the residency as much as by the work. The probes'
+barriers cost a few percent.
 """
 
 from __future__ import annotations
@@ -20,66 +29,88 @@ import subprocess
 
 import torch
 
-PHASES = [  # counter k of the source's DK_PROF(k)
-    "factor: H assembled + factorised", "factor: W = L^-1 A'", "factor: S assembled + factorised",
+PHASES = [  # counter k of the source's enum PdipProf
+    "factor: [H; A] assembled + eliminated (L, W')", "factor: S assembled + factorised",
     "direction: right-hand side", "direction: substitution chain (warp 0)", "direction: ds, dlam",
-    "residuals + scalars", "staging + pointers",
+    "residuals + scalars", "step lengths, sigma, update", "init (staging, pointers, shift)", "exit (scoring, output)",
 ]
+TOTAL, BODIES = 14, 15
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=32768)
+    ap.add_argument("--shape", nargs=3, type=int, action="append", metavar=("N", "M", "P"),
+                    help="n m p (repeatable; default: 64 32 16 and 100 48 24)")
+    ap.add_argument("--team", nargs="+", type=int, choices=(0, 1, 2, 8), default=[0],
+                    help="warps per instance (0: the launch rule's choice)")
+    ap.add_argument("--batch", type=int, default=None, help="instances (default 32768; 8192 at n > 64)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("pdip_phase_cycles: no CUDA device")
 
-    from diffopt_tpu_torch.ops.cuda import _build
-    from diffopt_tpu_torch.ops.cuda.pdip import MAX_SMEM_BYTES, default_reg, default_tol, smem_bytes
+    from diffopt_tpu_torch.ops.cuda import _build, pdip
     from diffopt_tpu_torch.utils.testing import make_batch
 
-    with _build.variant("pdip", "-DDK_PROFILE") as lib:
-        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.pdip_fused_f32.argtypes = [vp] * 11 + [ci] * 5 + [cd, cd, ci, vp]
-        lib.pdip_fused_f32.restype = ci
-        lib.pdip_prof_read.argtypes = [vp]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
 
-        B, n, m, p = args.batch, 64, 32, 16
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    shapes = args.shape or [[64, 32, 16], [100, 48, 24]]
+    for n, m, p in shapes:
+        B = args.batch or (32768 if n <= 64 else 8192)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
         qp = make_batch(B, n, m, p, torch.float32, "cuda", gen)
-        new = lambda k, dt=torch.float32: torch.empty(B, k, dtype=dt, device="cuda")
-        z, lam, nu, s, it = new(n), new(m), new(p), new(m), torch.empty(B, dtype=torch.int32, device="cuda")
-        stage = int(smem_bytes(n, m, p, 4, True) <= MAX_SMEM_BYTES)
-
-        def run():
-            code = lib.pdip_fused_f32(
-                qp.Q.data_ptr(), qp.q.data_ptr(), qp.A.data_ptr(), qp.b.data_ptr(), qp.G.data_ptr(), qp.h.data_ptr(),
-                z.data_ptr(), lam.data_ptr(), nu.data_ptr(), s.data_ptr(), it.data_ptr(), B, n, m, p, 25,
-                default_tol(torch.float32), default_reg(torch.float32), stage, torch.cuda.current_stream().cuda_stream,
-            )
-            if code != 0:
-                raise SystemExit(f"pdip_phase_cycles: launch failed with CUDA error {code}")
-
-        run()
-        torch.cuda.synchronize()
-        lib.pdip_prof_zero()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        run()
-        e1.record()
-        torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * 16)()
-        lib.pdip_prof_read(ctypes.cast(buf, vp))
-        total = buf[8] / B
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip()
-        print(f"probed kernel: {e0.elapsed_time(e1):.2f} ms for B = {B}, n = {n}, m = {m}, p = {p}, f32, on {card}")
-        print(f"mean per block: {total:.0f} cycles; the init and {buf[9] / B - 1:.2f} loop bodies")
-        for k, name in enumerate(PHASES):
-            print(f"  {name:42s} {buf[k] / B:10.0f} cycles  {buf[k] / B / total:6.1%}")
+        for team in dict.fromkeys(t or pdip.team_for(n, m, p, 4) for t in args.team):
+            if not pdip.team_takes(n, m, p, 4, team):
+                print(f"[n={n} m={m} p={p} team {team}] a team of {team} warps does not take the shape")
+                continue
+            run = lambda: pdip.solve_batched_fused(qp, max_iters=25, team=team)
+            own_ms = timed(run)  # the package's own build
+            with _build.variant("pdip", "-DDK_PROFILE") as lib:
+                lib.pdip_prof_read.argtypes = [ctypes.c_void_p]
+                run()
+                torch.cuda.synchronize()
+                lib.pdip_prof_zero()
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                run()
+                e1.record()
+                torch.cuda.synchronize()
+                buf = (ctypes.c_ulonglong * 16)()
+                lib.pdip_prof_read(ctypes.cast(buf, ctypes.c_void_p))
+            total = buf[TOTAL] / B
+            tag = f"n={n} m={m} p={p} team {team}"
+            stage = pdip.stage_for(n, m, p, 4, team)
+            print(f"[{tag}] kernel {own_ms:.2f} ms (probed build {e0.elapsed_time(e1):.2f} ms) for B = {B}, f32,"
+                  f" a team of {team} warps per instance, Q, G, A {'staged' if stage else 'in device memory'},"
+                  f" {pdip.smem_bytes(n, m, p, 4, stage, team)} bytes of shared memory a team,"
+                  f" {pdip.blocks_per_sm(n, m, p, torch.float32, team)} resident per SM"
+                  f" ({pdip.instances_per_sm(n, m, p, 4, team, stage)} by the model), on {card}")
+            print(f"[{tag}] mean per instance: {total:.0f} cycles; the init and {buf[BODIES] / B - 1:.2f} loop bodies")
+            for k, name in enumerate(PHASES):
+                print(f"[{tag}]   {name:48s} {buf[k] / B:10.0f} cycles  {buf[k] / B / total:6.1%}")
+    # ptxas on each instantiation of the package's own build: registers, stack, spills
+    entry = None
+    for line in (_build.build_dir() / "pdip.nvcc.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry, spill = line.split("'")[1], ""
+        elif entry and "spill" in line:
+            spill = line.strip()
+        elif entry and "Used" in line:
+            print(f"[ptxas] {entry}: {line.split(':', 1)[1].strip()}; {spill}")
+            entry = None
 
 
 if __name__ == "__main__":

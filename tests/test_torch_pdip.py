@@ -134,9 +134,71 @@ def tkkt_residual(qp, sol):
 
 
 def test_smem_envelope_of_main_size():
-    # the headline size keeps Q, G, A staged and leaves room for 4 blocks per SM
-    assert tpdip.smem_bytes(64, 32, 16, 4, stage=True) <= 227 * 1024 // 4
-    # n = 100, m = 48, p = 24 fits staged in f32 and unstaged in f64
-    assert tpdip.smem_bytes(100, 48, 24, 4, stage=True) <= tpdip.MAX_SMEM_BYTES
-    assert tpdip.smem_bytes(100, 48, 24, 8, stage=True) > tpdip.MAX_SMEM_BYTES
-    assert tpdip.smem_bytes(100, 48, 24, 8, stage=False) <= tpdip.MAX_SMEM_BYTES
+    # the headline size leaves Q, G, A in device memory and holds eight two-warp teams per SM by
+    # shared memory (27 KB a team) as its launch bounds do by registers
+    assert tpdip.team_for(64, 32, 16, 4) == 2 and not tpdip.stage_for(64, 32, 16, 4, 2)
+    assert tpdip.smem_bytes(64, 32, 16, 4, stage=False, team=2) <= 28 * 1024
+    assert tpdip.instances_per_sm(64, 32, 16, 4, 2, stage=False) == 8
+    # n = 100, m = 48, p = 24 goes to eight warps, unstaged in f32 and f64, three resident in f32 (not one)
+    assert tpdip.team_for(100, 48, 24, 4) == 8 and tpdip.team_for(100, 48, 24, 8) == 8
+    assert not tpdip.stage_for(100, 48, 24, 4, 8) and not tpdip.stage_for(100, 48, 24, 8, 8)
+    assert tpdip.instances_per_sm(100, 48, 24, 4, 8, stage=False) == 3
+    assert tpdip.smem_bytes(100, 48, 24, 8, stage=True, team=8) > tpdip.MAX_SMEM_BYTES
+
+
+_NS = (1, 8, 24, 25, 32, 40, 41, 63, 64, 65, 100, 127, 128)
+_MS = (1, 16, 48, 128, 520, 540, 900, 1000, 2000, 3300, 3700)
+
+
+def _old_in_envelope(n, m, p, itemsize):
+    """The kernel's envelope before teams: one block of 256 threads, W as an n x p block, 12 m-vectors."""
+    odd = lambda k: k | 1
+    words = n * odd(n) + n * odd(p) + p * odd(p) + 9 * n + 12 * m + 7 * p + 32 + 256
+    return m >= 1 and 1 <= p <= 128 and n <= 128 and words * itemsize <= tpdip.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_launch_rule_staging_and_envelope(itemsize):
+    """The launch rule (team_for), the staging choice (stage_for) and the envelope over a grid of shapes up
+    to n, p = 128: the smallest team whose register tiles (tile_max_n) hold max(n, p) rows and whose unstaged
+    working set (smem_bytes(..., team=)) fits a block, one warp only to 32 rows; Q, G, A staged only where
+    they fit and cost no resident instance; and every shape the envelope took before teams is still taken."""
+    for n in _NS:
+        for p in _NS:
+            for m in _MS:
+                fits = {
+                    t: max(n, p) <= tpdip.tile_max_n(t)
+                    and tpdip.smem_bytes(n, m, p, itemsize, False, t) + 512 <= tpdip.MAX_SMEM_BYTES
+                    for t in tpdip.TEAMS
+                }
+                team = tpdip.team_for(n, m, p, itemsize)
+                ruled = [t for t in (1, 2, 8) if fits[t] and max(n, p) <= {1: 32, 2: 64, 8: 128}[t]]
+                assert team == (ruled or [t for t in (1, 2, 8) if fits[t]] or [0])[0], (n, m, p)
+                assert tpdip.in_envelope(n, m, p, itemsize) == (team > 0)
+                if _old_in_envelope(n, m, p, itemsize):
+                    assert team > 0, (n, m, p, itemsize)
+                for t in tpdip.TEAMS:
+                    assert tpdip.team_takes(n, m, p, itemsize, t) == fits[t]
+                    if not fits[t]:
+                        continue
+                    staged = tpdip.smem_bytes(n, m, p, itemsize, True, t)
+                    assert staged == tpdip.smem_bytes(n, m, p, itemsize, False, t) + (n + m + p) * n * itemsize
+                    want = staged + 512 <= tpdip.MAX_SMEM_BYTES and tpdip.instances_per_sm(
+                        n, m, p, itemsize, t, True
+                    ) >= tpdip.instances_per_sm(n, m, p, itemsize, t, False)
+                    assert tpdip.stage_for(n, m, p, itemsize, t) == want
+                    assert 1 <= tpdip.instances_per_sm(n, m, p, itemsize, t, tpdip.stage_for(n, m, p, itemsize, t))
+    assert tpdip.tile_max_n(1) == 40 and tpdip.tile_max_n(2) == 64 and tpdip.tile_max_n(8) == 128
+    assert tpdip.team_for(32, 16, 8, itemsize) == 1 and tpdip.team_for(40, 20, 10, itemsize) == 2
+
+
+def test_forced_team_refused_where_it_does_not_take_the_shape():
+    """A team that does not take a shape raises, on any device, and is never replaced by another."""
+    qp = dtt.convert.quadprogram_from_numpy(_random_batch(2, 48, 4, 2), dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="team of 1 warps"):
+        tpdip.solve_batched_fused(qp, team=1)
+    with pytest.raises(ValueError, match="team of 4 warps"):
+        tpdip.solve_batched_fused(qp, team=4)
+    # a team that takes it runs (the plain version on the CPU)
+    sol = tpdip.solve_batched_fused(qp, team=2)
+    assert bool(torch.isfinite(sol.z).all())

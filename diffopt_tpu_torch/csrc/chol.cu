@@ -1,5 +1,6 @@
-// Batched Cholesky factor and solve for small symmetric positive definite
-// matrices, one thread block per instance.
+// Batched Cholesky factor (K4) and solve (K5) for small symmetric positive
+// definite matrices: one instance per team of warps, or one per warp with
+// several warps packed into a block, sized by n.
 //
 // Replaces diffopt_tpu/ops/pallas/chol.py::cholesky_batched (_chol_kernel) and
 // ::cholesky_solve_batched (_solve_kernel). The TPU kernels put the batch along
@@ -14,41 +15,53 @@
 // the memory side of the card's 67 TFLOP/s : 3.35 TB/s). The solve needs the
 // lower triangle of L and the right-hand sides, n (n + 1) / 2 + n k words, and
 // writes n k words for 2 n^2 k flops. Both read only the lower triangle.
-// What they still pay for is the sequential structure: n elimination steps
-// with a block barrier each in the factor; 2 n substitution steps in the
-// solve, run by one warp per right-hand side with the right-hand side in
-// registers (k right-hand sides on up to 8 warps side by side, in rounds of
-// 8; the block is only as wide as k needs, so that more instances share an SM
-// when k = 1). At n = 16 (the Schur complement of the staged QP solver) a
-// block of 256 threads has work for one sixteenth of its tile grid; several
-// instances per block would be the next step.
+// What stands between them and that bound is the sequential structure: n
+// elimination steps with a team barrier each in the factor, 2 n substitution
+// steps in the solve. An instance's chain is short (n = 6 to 160), so the
+// design gives each instance the fewest threads that serve it and puts as
+// many instances on an SM as it holds, each chain overlapping the others:
+//
+// Factor. Up to n = 128 the matrix lives in the registers of a team of 1, 2
+// or 8 warps (dense.cuh: Team, TileGrid, factor_grid, the same register-tiled
+// elimination as K1 and K6, whose update order does not depend on the team:
+// every team size gives the same bits), one team per instance; the smallest team whose
+// tiles hold n takes it (one warp to 40 rows, two to 64, eight to 128;
+// chol_team). One-warp teams are packed two to a block (blockDim = (32, 2)),
+// so that an SM holds more of them than its 32 resident blocks.
+// Past 128 rows one block of eight warps factorises in shared memory
+// (factor_lower). The first pivot that is not > 0 is found by warp ballots
+// over the pivots.
+//
+// Solve. One warp per instance at k = 1, four warps packed into a block
+// (blockDim = (32, 1, per_block)). For k > 1 one copy of L serves all the
+// right-hand sides: a team of two warps (blockDim = (32, 2)) of which each
+// holds up to four right-hand sides in registers at once. L's lower triangle
+// reaches shared memory packed (row i at i (i + 1) / 2: a column walk of 32
+// consecutive rows touches 32 distinct banks) by asynchronous copies
+// (cp.async) in eight groups of columns, so the forward sweep, which needs
+// columns <= j only, starts on the first group while the rest arrive. Both
+// sweeps read L through SPtr (LDS, 32-bit addresses); the right-hand sides
+// stay in registers from the load to the store. Every launch does the parent
+// kernel's operations in its order (the forward sweep subtracts column by
+// column, the backward row by row of L, and each pivot is multiplied by
+// 1 / L[j][j]).
 //
 // A matrix that is not positive definite never traps: from the first pivot j
 // that is not > 0 on, every column k >= j of L is NaN (rows >= k), which is
 // what the reference's rsqrt leaves behind, and the solvers' NaN guards freeze
 // that instance.
 //
-// The factor keeps the matrix in registers up to n = 128 (dense.cuh,
-// factor_tile) and in shared memory past that (factor_lower).
-//
-// Envelope: (n * odd(n) + n + 1) words for the factor past n = 128 and
-// (n * odd(n) + n + n k) words for the solve must fit 227 KB of shared memory,
-// and the solve's register sweep holds n <= 256.
+// Envelope: the factor past n = 128 needs (n * odd(n) + n) words of shared
+// memory in 227 KB; the solve n <= 256 (32 lanes x 8 register rows) and its
+// packed triangle, n (n + 1) / 2 words, in 227 KB.
 #include "dense.cuh"
+#include "prof.cuh"
 
 namespace dk {
 
-// shared memory: the pivots (n words), one flag word (first bad pivot) and,
-// up to n = 128, the pivot-column buffer; past that the matrix itself
-template <typename T>
-__host__ __device__ inline size_t chol_factor_smem(int n) {
-  if (n <= kTileGrid * kMaxTileRows) return (size_t(n) + 1 + kColbufWords) * sizeof(T);
-  return (size_t(n) * odd_stride(n) + size_t(n) + 1) * sizeof(T);
-}
-template <typename T>
-__host__ __device__ inline size_t chol_solve_smem(int n, int k) {
-  return (size_t(n) * odd_stride(n) + size_t(n) + size_t(n) * k) * sizeof(T);
-}
+// counters of the phase probes (prof.cuh, tools/chol_phase_cycles.py): cycles per instance of its copy
+// in, its factorisation or forward sweep, its backward sweep and its write out, and the instances counted
+enum CholProf { kCholProfCopy, kCholProfWork, kCholProfBack, kCholProfOut, kCholProfInstances = 15 };
 
 template <typename T>
 __device__ inline T quiet_nan();
@@ -57,83 +70,159 @@ __device__ inline float quiet_nan<float>() { return __int_as_float(0x7fffffff); 
 template <>
 __device__ inline double quiet_nan<double>() { return __longlong_as_double(0x7ff8000000000000LL); }
 
-// Index of the first pivot that is not > 0 (n if all are) into *flag. Called
-// by every thread of the block; *flag must hold n on entry; ends in
-// __syncthreads.
-template <typename T>
-__device__ inline void first_bad_pivot(const T* __restrict__ diag, int n, int* flag) {
-  for (int j = threadIdx.x; j < n; j += kThreads)
-    if (!(diag[j] > T(0))) atomicMin(flag, j);
-  __syncthreads();
+__host__ __device__ constexpr int tri(int i) { return i * (i + 1) / 2; }
+
+// ---- the launch rule (mirrored by ops/cuda/chol.py) ----------------------------
+//
+// A launch is a team of `tw` warps per instance; k = 0 is the factor, k >= 1
+// the solve with k right-hand sides. One-warp teams are packed into a block,
+// two factor or four solve instances (fewer where their shared memory does not
+// fit), the counts that were timed fastest, or within a few percent of it, on
+// an H100 (PERF.md).
+
+constexpr int kSolveMaxRows = 256;  // 32 lanes x 8 register rows
+constexpr int kSolveMaxCols = 4;    // right-hand sides one warp holds at once
+
+// shared-memory words of one instance: the factor's pivots and the team's
+// double-buffered pivot column (registers route), or the matrix and pivots
+// (shared-memory route past 128); the solve's packed triangle
+__host__ __device__ inline int chol_factor_words(int n, int tw) {
+  return n <= tile_max_n(8) ? n + colbuf_words(tw) : n * odd_stride(n) + n;
+}
+__host__ __device__ inline int chol_solve_words(int n) { return tri(n); }
+
+// instances per block of a launch with teams of tw warps
+inline int chol_per_block(int n, int k, int itemsize, int tw) {
+  if (tw != 1) return 1;
+  if (k == 0) return 2;
+  int per = 4;
+  while (per > 1 && size_t(per) * chol_solve_words(n) * itemsize > kMaxSmemBytes) per >>= 1;
+  return per;
 }
 
-// Global memory -> register tiles -> global memory.
-template <typename T, int kRows>
-__device__ void chol_factor_tiled(const T* __restrict__ Hg, T* __restrict__ Lg, int n, T* smem) {
-  const int tx = threadIdx.x & (kTileGrid - 1), ty = threadIdx.x / kTileGrid;
-  T* dvec = smem;
-  int* flag = reinterpret_cast<int*>(smem + n);
-  T* colbuf = smem + n + 1;
-  if (threadIdx.x == 0) *flag = n;
-  T t[kRows][kRows];
+inline size_t chol_smem_bytes_of(int n, int k, int itemsize, int tw) {
+  const int words = k == 0 ? chol_factor_words(n, tw) : chol_solve_words(n);
+  return size_t(chol_per_block(n, k, itemsize, tw)) * words * size_t(itemsize);
+}
+
+// Whether teams of tw warps take the shape: the factor on a team whose
+// register tiles hold n (eight warps also past 128, in shared memory); the
+// solve on one warp at k = 1 and two for k > 1, n <= 256; everything in one
+// block's shared memory. (Solve teams of four and eight warps were slower
+// than two at every shape timed on an H100, and are not built.)
+inline bool chol_team_takes(int n, int k, int itemsize, int tw) {
+  if (n < 1 || k < 0) return false;
+  if (k == 0) {
+    if (!(tw == 1 || tw == 2 || tw == 8) || (n > tile_max_n(tw) && tw != 8)) return false;
+  } else if (tw != (k == 1 ? 1 : 2) || n > kSolveMaxRows) {
+    return false;
+  }
+  return chol_smem_bytes_of(n, k, itemsize, tw) <= kMaxSmemBytes;
+}
+
+// The launch rule: the factor's smallest team whose tiles hold n (one warp to
+// 40 rows, two to 64, eight past that), the solve's one team for its k; 0
+// where none takes the shape.
+inline int chol_team(int n, int k, int itemsize) {
+  const int tw = k == 0 ? (n <= 40 ? 1 : (n <= 64 ? 2 : 8)) : (k == 1 ? 1 : 2);
+  return chol_team_takes(n, k, itemsize, tw) ? tw : 0;
+}
+
+// ---- factor ------------------------------------------------------------------
+
+// Index of the first pivot that is not > 0 (n if all are), in every lane of
+// the calling warp: ballots over the pivots, 32 at a time.
+template <typename T, typename P>
+__device__ inline int first_bad_pivot(P diag, int n, int lane) {
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
+    const unsigned bad = __ballot_sync(kFullMask, j < n && !(diag[j] > T(0)));
+    if (bad) return j0 + __ffs(int(bad)) - 1;
+  }
+  return n;
+}
+
+// Registers the launch bounds allow a thread of each factor instantiation:
+// resident blocks per SM at least (f32 / f64), so that the tiles fit without
+// spilling at the sizes each instantiation serves.
+__host__ __device__ constexpr int chol_factor_min_blocks(int itemsize, int tw, int rx) {
+  return tw == 1 ? (rx <= 3 ? (itemsize == 4 ? 24 : 16) : (itemsize == 4 ? 12 : 6))  // blocks of two warps
+       : tw == 2 ? (rx <= 4 ? (itemsize == 4 ? 16 : 8) : (itemsize == 4 ? 8 : 4))
+                 : (rx <= 2 ? 4 : (rx <= 4 ? 2 : 1));
+}
+
+// One instance per team of TW warps (threadIdx.x), two teams per block for
+// TW = 1 (threadIdx.y), the matrix in the team's register tiles of RX column
+// tiles: global memory -> registers -> global.
+template <typename T, int TW, int RX>
+__global__ void __launch_bounds__(32 * TW * (TW == 1 ? 2 : 1), chol_factor_min_blocks(sizeof(T), TW, RX))
+chol_factor_team_kernel(const T* __restrict__ H, T* __restrict__ Lout, int B, int n) {
+  using G = TileGrid<TW>;
+  constexpr int kY = G::kY, kX = G::kX, RY = RX * kX / kY;
+  const int inst = blockIdx.x * blockDim.y + threadIdx.y;
+  if (inst >= B) return;  // a whole team: blocks of several teams hold one-warp teams only
+  const int base = threadIdx.y * chol_factor_words(n, TW);
+  const SPtr<T> diag{base}, colbuf{base + n};
+  const int tx = threadIdx.x % kX, ty = threadIdx.x / kX, lane = threadIdx.x & 31;
+  const T* Hg = H + size_t(inst) * n * n;
+  T* Lg = Lout + size_t(inst) * n * n;
+  DK_PROF_START();
+  // the lower triangle of H only; entries outside it and past n enter as zeros
+  T t[RY][RX];
 #pragma unroll
-  for (int a = 0; a < kRows; ++a)
+  for (int a = 0; a < RY; ++a)
 #pragma unroll
-    for (int b = 0; b <= a; ++b) {
-      const int i = ty + kTileGrid * a, k = tx + kTileGrid * b;
-      t[a][b] = (i < n && k < n) ? Hg[size_t(i) * n + k] : T(0);
+    for (int b = 0; b < RX; ++b) {
+      const int i = ty + kY * a, k = tx + kX * b;
+      t[a][b] = (tile_live<kY, kX>(a, b) && i < n && k <= i) ? Hg[size_t(i) * n + k] : T(0);
     }
-  factor_tile<T, kRows>(t, n, dvec, colbuf);
-  first_bad_pivot<T>(dvec, n, flag);
-  const int jbad = *flag;
+  DK_PROF_AT(kCholProfCopy, Team<TW>::sync(), threadIdx.x == 0);
+  factor_grid<T, TW, RY, RX>(t, n, diag, colbuf);
+  const int jbad = first_bad_pivot<T>(diag, n, lane);
+  DK_PROF_AT(kCholProfWork, Team<TW>::sync(), threadIdx.x == 0);
   const T nan = quiet_nan<T>();
   // column k of t carries L[i][k] * pivot k of the LDL' form: times
   // rsqrt(pivot k) it is the Cholesky factor, diagonal included
-  T rk[kRows];
+  T rk[RX];
 #pragma unroll
-  for (int b = 0; b < kRows; ++b) {
-    const int k = tx + kTileGrid * b;
-    rk[b] = k < n ? (k < jbad ? rsqrt(dvec[k]) : nan) : T(0);
+  for (int b = 0; b < RX; ++b) {
+    const int k = tx + kX * b;
+    rk[b] = k < n ? (k < jbad ? rsqrt(diag[k]) : nan) : T(0);
   }
 #pragma unroll
-  for (int a = 0; a < kRows; ++a)
+  for (int a = 0; a < RY; ++a)
 #pragma unroll
-    for (int b = 0; b < kRows; ++b) {
-      const int i = ty + kTileGrid * a, k = tx + kTileGrid * b;
+    for (int b = 0; b < RX; ++b) {
+      const int i = ty + kY * a, k = tx + kX * b;
       if (i < n && k < n) {
         T v = T(0);
-        if (b <= a) {
-          if (k <= i) v = k < jbad ? t[a][b] * rk[b] : nan;
-        }
+        if (tile_live<kY, kX>(a, b) && k <= i) v = k < jbad ? t[a][b] * rk[b] : nan;
         Lg[size_t(i) * n + k] = v;
       }
     }
+  DK_PROF_AT(kCholProfOut, Team<TW>::sync(), threadIdx.x == 0);
+  if (threadIdx.x == 0) DK_PROF_ADD(kCholProfInstances, 1);
 }
 
+// Past 128 rows: one block of eight warps per instance, the matrix in shared memory.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-chol_factor_kernel(const T* __restrict__ H, T* __restrict__ Lout, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* M = reinterpret_cast<T*>(smem_raw);
+chol_factor_smem_kernel(const T* __restrict__ H, T* __restrict__ Lout, int /*B: one block each*/, int n) {
+  const SPtr<T> M{0};
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const T* Hg = H + size_t(blockIdx.x) * n * n;
   T* Lg = Lout + size_t(blockIdx.x) * n * n;
-  if (dispatch_tile(n, [&](auto rows) { chol_factor_tiled<T, decltype(rows)::value>(Hg, Lg, n, M); }))
-    return;
-
-  // n > 128: the matrix lives in shared memory
   const int ld = odd_stride(n);
-  T* dvec = M + size_t(n) * ld;
-  int* flag = reinterpret_cast<int*>(dvec + n);
-  if (tid == 0) *flag = n;
+  T* dvec = reinterpret_cast<T*>(dk_smem) + size_t(n) * ld;
+  DK_PROF_START();
   // lower triangle only, one warp per row
   for (int i = warp; i < n; i += kWarps)
     for (int k = lane; k <= i; k += 32) M[i * ld + k] = Hg[size_t(i) * n + k];
   __syncthreads();
-
-  factor_lower<T>(M, ld, n, dvec);
-  first_bad_pivot<T>(dvec, n, flag);
-  const int jbad = *flag;
+  DK_PROF(kCholProfCopy);
+  factor_lower<T>(reinterpret_cast<T*>(dk_smem), ld, n, dvec);
+  const int jbad = first_bad_pivot<T>(dvec, n, lane);
+  DK_PROF(kCholProfWork);
   const T nan = quiet_nan<T>();
   for (int i = warp; i < n; i += kWarps)
     for (int k = lane; k < n; k += 32) {
@@ -141,93 +230,304 @@ chol_factor_kernel(const T* __restrict__ H, T* __restrict__ Lout, int n) {
       if (k <= i) v = k < jbad ? M[i * ld + k] * rsqrt(dvec[k]) : nan;
       Lg[size_t(i) * n + k] = v;
     }
+  DK_PROF(kCholProfOut);
+  if (tid == 0) DK_PROF_ADD(kCholProfInstances, 1);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-chol_solve_kernel(const T* __restrict__ L, const T* __restrict__ rhs, T* __restrict__ out, int n, int k) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* M = reinterpret_cast<T*>(smem_raw);
-  const int ld = odd_stride(n);
-  T* inv_diag = M + size_t(n) * ld;
-  T* X = inv_diag + n;
-  // the block is as wide as its right-hand sides need (chol_solve_threads), not kThreads
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int threads = blockDim.x, warps = threads >> 5;
-  const T* Lg = L + size_t(blockIdx.x) * n * n;
-  const T* rg = rhs + size_t(blockIdx.x) * n * k;
+// ---- solve -------------------------------------------------------------------
 
-  // lower triangle only, one warp per row
-  for (int i = warp; i < n; i += warps)
-    for (int c = lane; c <= i; c += 32) M[i * ld + c] = Lg[size_t(i) * n + c];
-  for (int i = tid; i < n; i += threads) inv_diag[i] = T(1) / Lg[size_t(i) * n + i];
-  // right-hand sides are held column by column (k x n), one warp per column
-  for (int e = tid; e < n * k; e += threads) {
-    const int i = e / k, c = e - i * k;
-    X[c * n + i] = rg[e];
-  }
-  __syncthreads();
-
-  // k right-hand sides on the block's warps side by side, in rounds
-  for (int c = warp; c < k; c += warps) warp_chol_solve<T>(M, ld, n, X + c * n, 1, inv_diag, lane);
-  __syncthreads();
-
-  T* og = out + size_t(blockIdx.x) * n * k;
-  for (int e = tid; e < n * k; e += threads) {
-    const int i = e / k, c = e - i * k;
-    og[e] = X[c * n + i];
+// asynchronous copies of one word from device to shared memory, in groups
+template <int kBytes>
+__device__ __forceinline__ void cp_async(unsigned dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src), "n"(kBytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// wait until at most `pending` of the calling thread's groups are in flight
+// (a constant wherever the loop around the call is unrolled)
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+#define DK_CP_WAIT(N) \
+  case N: asm volatile("cp.async.wait_group " #N ";\n" ::: "memory"); break;
+    DK_CP_WAIT(0) DK_CP_WAIT(1) DK_CP_WAIT(2) DK_CP_WAIT(3) DK_CP_WAIT(4) DK_CP_WAIT(5) DK_CP_WAIT(6)
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory");
+#undef DK_CP_WAIT
   }
 }
 
-template <typename T>
-int launch_chol_factor(const void* H, void* L, int B, int n, void* stream) {
-  const size_t smem = chol_factor_smem<T>(n);
-  if (B <= 0 || n <= 0 || smem > kMaxSmemBytes) return int(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(chol_factor_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
-  chol_factor_kernel<T><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(H), static_cast<T*>(L), n);
-  return int(cudaGetLastError());
+constexpr int kSolveChunks = 8;  // groups of columns L arrives in
+
+// The team's barrier in the solve: a warp, or the block when the team is more than one warp
+__device__ __forceinline__ void solve_sync() {
+  if (blockDim.y > 1) __syncthreads();
+  else __syncwarp();
 }
 
-// One warp per right-hand side, at least two (the second helps to load L), at
-// most kWarps: a substitution keeps one warp busy, so with one right-hand side
-// a narrow block leaves room for more instances on an SM (registers and
-// shared memory allow 13 blocks of 64 threads at n = 64 where they allow 4 of
-// 256), and what a sweep costs is latency that only other instances can hide.
-inline int chol_solve_threads(int k) { return 32 * (k < 2 ? 2 : (k > kWarps ? kWarps : k)); }
+// Solves L L' x = rhs for one instance on a team of blockDim.y warps; each
+// warp holds C right-hand sides at once (lane l: rows 32 r + l in x[c][r]),
+// rounds of C blockDim.y columns where k is larger. kRows register rows hold
+// n <= 32 kRows.
+template <typename T, int kRows, int C>
+__global__ void __launch_bounds__(256)
+chol_solve_kernel(const T* __restrict__ Lin, const T* __restrict__ rhs, T* __restrict__ out, int B, int n, int k) {
+  constexpr int kChunkCols = 4 * kRows;  // kSolveChunks chunks of columns cover 32 kRows
+  static_assert(kChunkCols * kSolveChunks == 32 * kRows && 32 % kChunkCols == 0, "chunks tile the register rows");
+  const int lane = threadIdx.x, warp = threadIdx.y, warps = blockDim.y;
+  const int inst = blockIdx.x * blockDim.z + threadIdx.z;
+  if (inst >= B) return;  // a whole warp: blocks of several instances hold one-warp teams only
+  const SPtr<T> L{int(threadIdx.z) * chol_solve_words(n)};
+  const T* Lg = Lin + size_t(inst) * n * n;
+  const T* rg = rhs + size_t(inst) * n * k;
+  T* og = out + size_t(inst) * n * k;
+  DK_PROF_START();
 
-template <typename T>
-int launch_chol_solve(const void* L, const void* rhs, void* out, int B, int n, int k, void* stream) {
-  const size_t smem = chol_solve_smem<T>(n, k);
-  if (B <= 0 || n <= 0 || n > kMaxSubstitutionRows || k <= 0 || smem > kMaxSmemBytes)
+  // L's lower triangle, packed, by columns [kChunkCols c, kChunkCols (c + 1)) of rows >= that:
+  // 32 / kChunkCols rows per warp instruction, the team's warps taking rows in turn
+  const unsigned sL = unsigned(__cvta_generic_to_shared(dk_smem)) + unsigned(L.off) * sizeof(T);
+  {
+    const int dr = lane / kChunkCols, col_in = lane % kChunkCols, rstep = (32 / kChunkCols) * warps;
+#pragma unroll
+    for (int c = 0; c < kSolveChunks; ++c) {
+      const int col = kChunkCols * c + col_in;
+      for (int i = kChunkCols * c + dr + (32 / kChunkCols) * warp; i < n; i += rstep)
+        if (col <= i) cp_async<sizeof(T)>(sL + unsigned(tri(i) + col) * sizeof(T), Lg + size_t(i) * n + col);
+      cp_async_commit();
+    }
+  }
+  // 1 / L[i][i] in the lane that owns row i, and tri(i)
+  T inv[kRows];
+  int roff[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = 32 * r + lane;
+    inv[r] = i < n ? T(1) / Lg[size_t(i) * n + i] : T(0);
+    roff[r] = tri(i);
+  }
+  DK_PROF_AT(kCholProfCopy, solve_sync(), lane == 0 && warp == 0);
+
+  const int rounds = (k + C * warps - 1) / (C * warps);
+  for (int round = 0; round < rounds; ++round) {
+    const int c0 = (round * warps + warp) * C;  // this warp's first column
+    T x[C][kRows];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = 32 * r + lane;
+        x[c][r] = (i < n && c0 + c < k) ? rg[size_t(i) * k + c0 + c] : T(0);
+      }
+
+    // forward: x <- L^-1 x by columns, chunk by chunk as they arrive (waited for in the first round only)
+#pragma unroll
+    for (int rj = 0; rj < kRows; ++rj) {
+#pragma unroll
+      for (int q = 0; q < 32 / kChunkCols; ++q) {
+        const int chunk = rj * (32 / kChunkCols) + q, j0 = kChunkCols * chunk;
+        if (j0 >= n) break;
+        if (round == 0) {
+          cp_async_wait(kSolveChunks - 1 - chunk);
+          solve_sync();
+        }
+        const int jend = min(kChunkCols, n - j0);
+#pragma unroll 4
+        for (int jj = 0; jj < jend; ++jj) {
+          const int jl = q * kChunkCols + jj, j = j0 + jj;
+          T y[C];
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            if (lane == jl) x[c][rj] *= inv[rj];
+            y[c] = __shfl_sync(kFullMask, x[c][rj], jl);
+          }
+#pragma unroll
+          for (int r = rj; r < kRows; ++r) {
+            const int i = 32 * r + lane;
+            if (i > j && i < n) {
+              const T l = L[roff[r] + j];
+#pragma unroll
+              for (int c = 0; c < C; ++c) x[c][r] -= l * y[c];
+            }
+          }
+        }
+      }
+    }
+    DK_PROF_AT(kCholProfWork, solve_sync(), lane == 0 && warp == 0);
+
+    // backward: x <- L'^-1 x, reading row j of L
+#pragma unroll
+    for (int rj = kRows - 1; rj >= 0; --rj) {
+      const int jend = min(32, n - 32 * rj);
+#pragma unroll 4
+      for (int jl = jend - 1; jl >= 0; --jl) {
+        const int j = 32 * rj + jl, rowj = tri(j);
+        T y[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (lane == jl) x[c][rj] *= inv[rj];
+          y[c] = __shfl_sync(kFullMask, x[c][rj], jl);
+        }
+#pragma unroll
+        for (int r = 0; r <= rj; ++r) {
+          const int i = 32 * r + lane;
+          if (i < j) {
+            const T l = L[rowj + i];
+#pragma unroll
+            for (int c = 0; c < C; ++c) x[c][r] -= l * y[c];
+          }
+        }
+      }
+    }
+    DK_PROF_AT(kCholProfBack, solve_sync(), lane == 0 && warp == 0);
+
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = 32 * r + lane;
+        if (i < n && c0 + c < k) og[size_t(i) * k + c0 + c] = x[c][r];
+      }
+    DK_PROF_AT(kCholProfOut, solve_sync(), lane == 0 && warp == 0);
+  }
+  if (lane == 0 && warp == 0) DK_PROF_ADD(kCholProfInstances, 1);
+}
+
+// ---- launchers -----------------------------------------------------------------
+
+// f(kernel, block) with the factor's instantiation for (n, tw): the smallest
+// of the team's covers that holds n, or the shared-memory kernel past 128 rows
+template <typename T, int TW, int kIdx = 0, class F>
+int with_cover(int n, int per, F&& f) {
+  using G = TileGrid<TW>;
+  if constexpr (kIdx >= G::kNumCovers) {
     return int(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(chol_solve_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
-  chol_solve_kernel<T><<<B, chol_solve_threads(k), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(L), static_cast<const T*>(rhs), static_cast<T*>(out), n, k);
-  return int(cudaGetLastError());
+  } else {
+    constexpr int cover = G::kCovers[kIdx];
+    if (n <= cover) return f(chol_factor_team_kernel<T, TW, cover / G::kX>, dim3(32 * TW, per));
+    return with_cover<T, TW, kIdx + 1>(n, per, f);
+  }
+}
+
+template <typename T, class F>
+int with_factor_kernel(int n, int tw, int per, F&& f) {
+  if (n > tile_max_n(8)) return f(chol_factor_smem_kernel<T>, dim3(kThreads));
+  return with_team(tw, [&](auto tc) { return with_cover<T, decltype(tc)::value>(n, per, f); });
+}
+
+// columns one warp holds at once for k right-hand sides on tw warps: 1, 2 or 4
+inline int solve_cols(int k, int tw) {
+  const int c = (k + tw - 1) / tw;
+  return c <= 1 ? 1 : (c <= 2 ? 2 : kSolveMaxCols);
+}
+
+template <typename T, class F>
+int with_solve_kernel(int n, int k, int tw, int per, F&& f) {
+  const dim3 block(32, tw, per);
+  auto by_cols = [&](auto rows) {
+    constexpr int R = decltype(rows)::value;
+    switch (solve_cols(k, tw)) {
+      case 1: return f(chol_solve_kernel<T, R, 1>, block);
+      case 2: return f(chol_solve_kernel<T, R, 2>, block);
+      default: return f(chol_solve_kernel<T, R, kSolveMaxCols>, block);
+    }
+  };
+  if (n <= 32) return by_cols(std::integral_constant<int, 1>{});
+  if (n <= 64) return by_cols(std::integral_constant<int, 2>{});
+  if (n <= 128) return by_cols(std::integral_constant<int, 4>{});
+  return by_cols(std::integral_constant<int, 8>{});
+}
+
+template <typename T>
+int launch_chol_factor(const void* H, void* L, int B, int n, int team, void* stream) {
+  const int item = int(sizeof(T));
+  if (team == 0) team = chol_team(n, 0, item);
+  if (B <= 0 || !chol_team_takes(n, 0, item, team)) return int(cudaErrorInvalidValue);  // refused
+  const int per = chol_per_block(n, 0, item, team);
+  const size_t smem = chol_smem_bytes_of(n, 0, item, team);
+  return with_factor_kernel<T>(n, team, per, [&](auto kernel, dim3 block) {
+    cudaError_t e = smem_attributes(kernel, smem);
+    if (e != cudaSuccess) return int(e);
+    kernel<<<(B + per - 1) / per, block, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(H), static_cast<T*>(L), B, n);
+    return int(cudaGetLastError());
+  });
+}
+
+template <typename T>
+int launch_chol_solve(const void* L, const void* rhs, void* out, int B, int n, int k, int team, void* stream) {
+  const int item = int(sizeof(T));
+  if (team == 0) team = chol_team(n, k, item);
+  if (B <= 0 || k <= 0 || !chol_team_takes(n, k, item, team)) return int(cudaErrorInvalidValue);  // refused
+  const int per = chol_per_block(n, k, item, team);
+  const size_t smem = chol_smem_bytes_of(n, k, item, team);
+  return with_solve_kernel<T>(n, k, team, per, [&](auto kernel, dim3 block) {
+    cudaError_t e = smem_attributes(kernel, smem);
+    if (e != cudaSuccess) return int(e);
+    kernel<<<(B + per - 1) / per, block, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(L), static_cast<const T*>(rhs), static_cast<T*>(out), B, n, k);
+    return int(cudaGetLastError());
+  });
+}
+
+// instances resident on one SM at the shape with teams of `team` warps (k = 0:
+// the factor), by the occupancy calculator; a negative CUDA error code on failure
+template <typename T>
+int chol_blocks_per_sm_of(int n, int k, int team) {
+  const int item = int(sizeof(T));
+  if (team == 0) team = chol_team(n, k, item);
+  if (!chol_team_takes(n, k, item, team)) return -int(cudaErrorInvalidValue);
+  const int per = chol_per_block(n, k, item, team);
+  const size_t smem = chol_smem_bytes_of(n, k, item, team);
+  auto occupancy = [&](auto kernel, dim3 block) {
+    cudaError_t e = smem_attributes(kernel, smem);
+    int blocks = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block.x * block.y * block.z, smem);
+    return e == cudaSuccess ? blocks * per : -int(e);
+  };
+  return k == 0 ? with_factor_kernel<T>(n, team, per, occupancy) : with_solve_kernel<T>(n, k, team, per, occupancy);
 }
 
 }  // namespace dk
 
 extern "C" {
 
+#ifdef DK_PROFILE
+int chol_prof_read(unsigned long long* out) { return dk::prof_read(out); }
+int chol_prof_zero() { return dk::prof_zero(); }
+#endif
+
 const char* dk_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
-int chol_factor_f32(const void* H, void* L, int B, int n, void* stream) {
-  return dk::launch_chol_factor<float>(H, L, B, n, stream);
+// The launch rule: warps per instance for the shape (k = 0: the factor; 0 where none takes it), and
+// instances per block into *per_block.
+int chol_team(int n, int k, int itemsize, int* per_block) {
+  const int team = dk::chol_team(n, k, itemsize);
+  *per_block = team ? dk::chol_per_block(n, k, itemsize, team) : 0;
+  return team;
 }
-int chol_factor_f64(const void* H, void* L, int B, int n, void* stream) {
-  return dk::launch_chol_factor<double>(H, L, B, n, stream);
+
+// Dynamic shared memory of a block with teams of `team` warps at the shape, in bytes; -1 where that
+// team does not take it.
+long long chol_smem_bytes(int n, int k, int itemsize, int team) {
+  return dk::chol_team_takes(n, k, itemsize, team) ? (long long)dk::chol_smem_bytes_of(n, k, itemsize, team) : -1;
 }
-int chol_solve_f32(const void* L, const void* rhs, void* out, int B, int n, int k, void* stream) {
-  return dk::launch_chol_solve<float>(L, rhs, out, B, n, k, stream);
+
+// Instances resident per SM at the shape (team 0: the rule's); a negative CUDA error code on failure.
+int chol_blocks_per_sm(int n, int k, int itemsize, int team) {
+  return itemsize == 4 ? dk::chol_blocks_per_sm_of<float>(n, k, team) : dk::chol_blocks_per_sm_of<double>(n, k, team);
 }
-int chol_solve_f64(const void* L, const void* rhs, void* out, int B, int n, int k, void* stream) {
-  return dk::launch_chol_solve<double>(L, rhs, out, B, n, k, stream);
+
+// team: warps per instance, 0 for the launch rule's; a team that does not take the shape is refused
+// (cudaErrorInvalidValue), never replaced by another.
+int chol_factor_f32(const void* H, void* L, int B, int n, int team, void* stream) {
+  return dk::launch_chol_factor<float>(H, L, B, n, team, stream);
+}
+int chol_factor_f64(const void* H, void* L, int B, int n, int team, void* stream) {
+  return dk::launch_chol_factor<double>(H, L, B, n, team, stream);
+}
+int chol_solve_f32(const void* L, const void* rhs, void* out, int B, int n, int k, int team, void* stream) {
+  return dk::launch_chol_solve<float>(L, rhs, out, B, n, k, team, stream);
+}
+int chol_solve_f64(const void* L, const void* rhs, void* out, int B, int n, int k, int team, void* stream) {
+  return dk::launch_chol_solve<double>(L, rhs, out, B, n, k, team, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,9 @@
 // Dense building blocks shared by the kernels of this package: Cholesky / LDL'
 // factorisations and triangular substitutions on a matrix held in shared
 // memory, plus warp reductions. One thread block works on one problem
-// instance: kThreads threads in K2-K5 and K7; a team of 1, 2 or 8 warps in
-// K1 and K6 (Team below), whose factorisation runs on the team's own thread
-// grid.
+// instance: kThreads threads in K2, K3, K7 and K4 past 128 rows; a team of 1,
+// 2 or 8 warps in K1, K4 and K6 (Team below), whose factorisation runs on the
+// team's own thread grid (K4 packs several one-warp teams into a block).
 //
 // Two scopes: a factorisation has O(n^2) independent updates per step and is
 // run by the whole block (one block barrier per step), with the matrix in
@@ -153,7 +153,7 @@ struct Team {
   }
 };
 
-// the team sizes the team kernels (K1, K6) are built for: four warps would hold
+// the team sizes the team kernels (K1, K4, K6) are built for: four warps would hold
 // the same 64 rows as two, and were slower than two at every layout of K6 timed
 constexpr int kTeams[] = {1, 2, 8};
 
@@ -184,7 +184,7 @@ cudaError_t smem_attributes(K* kernel, size_t smem) {
 // factor_lower spends ten instructions on addresses and predicates for every
 // multiply-add, and every operand comes from shared memory. Here the matrix
 // lives in REGISTERS for the whole factorisation: the team's threads form a
-// kY x kX grid (TileGrid below; 16 x 16 for the 256 threads of K2-K5 and K7),
+// kY x kX grid (TileGrid below; 16 x 16 for the 256 threads of K2, K3 and K7),
 // thread (ty, tx) = (tid / kX, tid % kX) owns the entries (i, k) with
 // i = ty + kY a, k = tx + kX b (a cyclic map, so the trailing matrix stays
 // spread over all threads as it shrinks), a < RY, b < RX, kY RY = kX RX, of
@@ -208,7 +208,7 @@ template <> struct TileGrid<8> { static constexpr int kY = 16, kX = 16, kNumCove
 __host__ __device__ constexpr int tile_max_n(int tw) { return tw == 1 ? 40 : (tw == 8 ? 128 : 64); }
 __host__ __device__ constexpr int colbuf_words(int tw) { return 2 * tile_max_n(tw); }
 
-constexpr int kTileGrid = 16;  // the 256-thread grid of K2-K5 and K7
+constexpr int kTileGrid = 16;  // the 256-thread grid of K2, K3 and K7
 static_assert(kTileGrid * kTileGrid == kThreads, "the tile map needs a 16 x 16 thread grid");
 constexpr int kMaxTileRows = 8;                                 // n <= 128
 constexpr int kColbufWords = 2 * kTileGrid * kMaxTileRows;      // double-buffered pivot column
@@ -233,7 +233,7 @@ __device__ inline bool dispatch_grid(int n, F&& f) {
   }
 }
 
-// The 256-thread form: kRows in {2, 4, 8} (n <= 128) for K2-K5 and K7.
+// The 256-thread form: kRows in {2, 4, 8} (n <= 128) for K2, K3 and K7.
 template <typename F>
 __device__ inline bool dispatch_tile(int n, F&& f) { return dispatch_grid<8>(n, f); }
 
@@ -299,7 +299,7 @@ __device__ void factor_grid(T (&t)[RY][RX], int n, P diag, P colbuf) {
   Team<TW>::sync();
 }
 
-// The 256-thread form (16 x 16 grid, kRows x kRows tiles, b <= a kept) of K2-K5 and K7.
+// The 256-thread form (16 x 16 grid, kRows x kRows tiles, b <= a kept) of K2, K3 and K7.
 template <typename T, int kRows>
 __device__ void factor_tile(T (&t)[kRows][kRows], int n, T* __restrict__ diag, T* __restrict__ colbuf) {
   factor_grid<T, 8, kRows, kRows>(t, n, diag, colbuf);
@@ -445,13 +445,6 @@ __device__ inline void warp_backward_sub(const T* L, int ld, int n, T* x, int xs
   if (n <= 64) warp_backward_sub_rows<T, 2>(L, ld, n, x, xs, piv, lane);
   else if (n <= 128) warp_backward_sub_rows<T, 4>(L, ld, n, x, xs, piv, lane);
   else warp_backward_sub_rows<T, 8>(L, ld, n, x, xs, piv, lane);
-}
-
-// x <- (L L')^-1 x with a Cholesky factor from store_chol_tile (inv_diag = its diag).
-template <typename T>
-__device__ void warp_chol_solve(const T* L, int ld, int n, T* x, int xs, const T* inv_diag, int lane) {
-  warp_forward_sub(L, ld, n, x, xs, inv_diag, lane);
-  warp_backward_sub(L, ld, n, x, xs, inv_diag, lane);
 }
 
 }  // namespace dk

@@ -1,5 +1,5 @@
-// Phase probes of the fused solver kernels, read by tools/pdip_phase_cycles.py
-// (K1) and tools/k6_phase_cycles.py (K6). They are compiled in only with
+// Phase probes of the kernels, read by tools/pdip_phase_cycles.py (K1),
+// tools/k6_phase_cycles.py (K6) and tools/chol_phase_cycles.py (K4, K5). They are compiled in only with
 // -DDK_PROFILE; otherwise every macro vanishes and the package's own build
 // carries no trace of them.
 //
@@ -30,6 +30,16 @@ __device__ unsigned long long g_prof[kProfCounters];
     }                                                            \
   } while (0)
 #define DK_PROF_ADD(k, v) atomicAdd(&g_prof[k], (unsigned long long)(v))
+// DK_PROF(k) for a team that is not the whole block: `sync` its barrier, `leader` the one thread that counts
+#define DK_PROF_AT(k, sync, leader)                              \
+  do {                                                           \
+    sync;                                                        \
+    if (leader) {                                                \
+      const long long t_ = clock64();                            \
+      atomicAdd(&g_prof[k], (unsigned long long)(t_ - t0_));     \
+      t0_ = t_;                                                  \
+    }                                                            \
+  } while (0)
 
 // the counters to the host (out: kProfCounters words) and back to zero
 inline int prof_read(unsigned long long* out) {
@@ -44,6 +54,7 @@ inline int prof_zero() {
 #define DK_PROF_RESTART() do {} while (0)
 #define DK_PROF(k) do {} while (0)
 #define DK_PROF_ADD(k, v) do {} while (0)
+#define DK_PROF_AT(k, sync, leader) do {} while (0)
 #endif
 
 }  // namespace dk

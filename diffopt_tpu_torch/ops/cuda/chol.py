@@ -9,10 +9,18 @@ Replaces ``diffopt_tpu/ops/pallas/chol.py::cholesky_batched`` (kernel body
 (``_ldl_solve_kernel``). The symmetrised KKT systems are strongly
 factorisable (Vanderbei 1995), so the LDL' needs no pivoting.
 
-The Cholesky pair (sources: ``csrc/chol.cu``, ``csrc/dense.cuh``) follows the
-LDL' pair's design, described next; its own notes (bytes bound, the NaN
-semantics of a matrix that is not positive definite, the envelope) stand at
-the head of ``csrc/chol.cu`` and on the wrappers below.
+The Cholesky pair (sources: ``csrc/chol.cu``, ``csrc/dense.cuh``) is sized by
+n: the factor runs one instance per team of 1, 2 or 8 warps (the matrix in the
+team's register tiles; one-warp instances packed two to a block so that an SM
+holds more than 32), the solve one instance per warp at k = 1 (four to a
+block) and, for k > 1, a team of two warps sharing one copy of L, with L
+reaching shared memory by asynchronous copies that overlap the forward sweep.
+The launch rule (:func:`team_for`, written once in the source as
+``chol_team`` and mirrored here; the wrapper checks the two agree before each
+launch) picks ``(team, per_block)``; ``team=`` forces a team and one that
+does not take the shape raises. The notes on the bytes bound,
+the NaN semantics of a matrix that is not positive definite and the envelope
+stand at the head of ``csrc/chol.cu`` and on the wrappers below.
 
 Design on the H100 (sources: ``csrc/ldl.cu``, ``csrc/dense.cuh``): one thread
 block per instance; the matrix is read once from its natural ``(B, N, N)``
@@ -42,7 +50,9 @@ callers in ``ops/kkt.py`` take the LU route by size.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -79,17 +89,83 @@ def ldl_max_n(dtype) -> int:
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _chol_factor_smem_bytes(n: int, itemsize: int) -> int:
-    if n <= 128:  # matrix in registers: pivots + flag word + the pivot-column buffer
-        return (n + 1 + 256) * itemsize
-    return (n * _odd(n) + n + 1) * itemsize  # matrix + pivots + flag word
+# --- the Cholesky pair's launch rule (mirrors chol_team / chol_team_takes in csrc/chol.cu) ---------
+
+FACTOR_TEAMS = (1, 2, 8)  # warps per instance of the factor (kTeams in csrc/dense.cuh)
+SOLVE_TEAMS = (1, 2)  # warps per instance of the solve
+_CHOL_SOLVE_MAX_ROWS = 256  # the substitution sweep holds 32 lanes x 8 register rows
+
+
+def tile_max_n(team: int) -> int:
+    """Rows a team of ``team`` warps factorises in registers (``tile_max_n`` in ``csrc/dense.cuh``)."""
+    return 40 if team == 1 else (128 if team == 8 else 64)
+
+
+def _tri(n: int) -> int:
+    return n * (n + 1) // 2
+
+
+def _chol_factor_smem_bytes(n: int, itemsize: int, team: int = 8) -> int:
+    """Shared memory of one factor instance (``chol_factor_words``): up to n = 128
+    the pivots and the team's double-buffered pivot column, past it the matrix
+    and the pivots."""
+    if n <= 128:
+        return (n + 2 * tile_max_n(team)) * itemsize
+    return (n * _odd(n) + n) * itemsize
 
 
 def _chol_solve_smem_bytes(n: int, k: int, itemsize: int) -> int:
-    return (n * _odd(n) + n + n * k) * itemsize  # L + 1 / diagonal + right-hand sides
+    """Shared memory of one solve instance: L's lower triangle, packed (the
+    right-hand sides live in registers, so it does not grow with k)."""
+    return _tri(n) * itemsize
 
 
-_CHOL_SOLVE_MAX_ROWS = 256  # the substitution sweep holds 32 lanes x 8 register entries
+def per_block_of(n: int, k: int, itemsize: int, team: int) -> int:
+    """Instances per block of a launch on teams of ``team`` warps
+    (``chol_per_block``): two one-warp factor instances, four one-warp solve
+    instances (two or one where their shared memory does not fit), else one."""
+    if team != 1:
+        return 1
+    if k == 0:
+        return 2
+    per = 4
+    while per > 1 and per * _chol_solve_smem_bytes(n, k, itemsize) > MAX_SMEM_BYTES:
+        per //= 2
+    return per
+
+
+def smem_bytes(n: int, k: int, itemsize: int, team: int) -> int:
+    """Dynamic shared memory of a block on teams of ``team`` warps (``k = 0``:
+    the factor); the wrapper checks it against the source's
+    ``chol_smem_bytes`` before a launch configuration's first use."""
+    one = _chol_factor_smem_bytes(n, itemsize, team) if k == 0 else _chol_solve_smem_bytes(n, k, itemsize)
+    return per_block_of(n, k, itemsize, team) * one
+
+
+@functools.lru_cache(maxsize=None)
+def team_takes(n: int, k: int, itemsize: int, team: int) -> bool:
+    """Whether teams of ``team`` warps take the shape (``k = 0``: the factor):
+    the factor on a team whose register tiles hold n (eight warps also past
+    128, in shared memory); the solve on one warp at k = 1 and two for k > 1,
+    n <= 256; the block's shared memory within 227 KB."""
+    if n < 1 or k < 0:
+        return False
+    if k == 0:
+        if team not in FACTOR_TEAMS or (n > tile_max_n(team) and team != 8):
+            return False
+    elif team != (1 if k == 1 else 2) or n > _CHOL_SOLVE_MAX_ROWS:
+        return False
+    return smem_bytes(n, k, itemsize, team) <= MAX_SMEM_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def team_for(n: int, k: int, itemsize: int) -> tuple[int, int]:
+    """The launch rule (``chol_team`` in ``csrc/chol.cu``): ``(team, per_block)``
+    for the shape (``k = 0``: the factor), ``(0, 0)`` where no team takes it.
+    Factor: one warp to 40 rows, two to 64, eight past that. Solve: one warp
+    at k = 1, two for k > 1."""
+    team = (1 if n <= 40 else (2 if n <= 64 else 8)) if k == 0 else (1 if k == 1 else 2)
+    return (team, per_block_of(n, k, itemsize, team)) if team_takes(n, k, itemsize, team) else (0, 0)
 
 
 def cholesky_max_n(dtype) -> int:
@@ -97,7 +173,7 @@ def cholesky_max_n(dtype) -> int:
     ``dtype``; past it the library call takes over."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     n = 1
-    while _chol_factor_smem_bytes(n + 1, itemsize) <= MAX_SMEM_BYTES:
+    while team_takes(n + 1, 0, itemsize, 8):
         n += 1
     return n
 
@@ -110,13 +186,33 @@ def _chol_lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for sfx in _SUFFIX.values():
             f = getattr(lib, f"chol_factor_{sfx}")
-            f.argtypes = [vp, vp, ci, ci, vp]
+            f.argtypes = [vp, vp, ci, ci, ci, vp]  # H, L, B, n, team, stream
             f.restype = ci
             s = getattr(lib, f"chol_solve_{sfx}")
-            s.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+            s.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]  # L, rhs, out, B, n, k, team, stream
             s.restype = ci
+        lib.chol_blocks_per_sm.argtypes = [ci] * 4
+        lib.chol_blocks_per_sm.restype = ci
+        lib.chol_team.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.chol_team.restype = ci
+        lib.chol_smem_bytes.argtypes = [ci] * 4
+        lib.chol_smem_bytes.restype = ctypes.c_longlong
         lib._chol_bound = True
     return lib
+
+
+def blocks_per_sm(n: int, k: int, dtype, team: int = 0) -> int:
+    """Instances resident on one SM of the current card at the shape (``k = 0``:
+    the factor) on teams of ``team`` warps (0: the rule's), as the CUDA
+    occupancy calculator counts them with the built kernel's registers and
+    shared memory. Needs the card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("chol.blocks_per_sm: no CUDA device")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    got = _chol_lib().chol_blocks_per_sm(n, k, itemsize, team)
+    if got < 0:
+        raise RuntimeError(f"chol.blocks_per_sm: CUDA error {-got} at n={n}, k={k}")
+    return got
 
 
 def _ldl_lib():
@@ -240,60 +336,104 @@ def _cholesky_library(H: Tensor) -> Tensor:
     return torch.where(bad[:, None, :] & lower, torch.full_like(L, float("nan")), L)
 
 
-def cholesky_batched(H: Tensor) -> Tensor:
+def _forced(what: str, n: int, k: int, itemsize: int, team) -> int | None:
+    """The forced team, or None for the rule's; raises ``ValueError`` where it
+    does not take the shape (another is never tried)."""
+    if team is not None and not team_takes(n, k, itemsize, team):
+        raise ValueError(
+            f"{what}: teams of {team} warps do not take n={n}" + (f", k={k}" if k else "")
+            + f" (teams {FACTOR_TEAMS if k == 0 else SOLVE_TEAMS}; see team_takes)"
+        )
+    return team
+
+
+_verified: set[tuple[int, int, int, int]] = set()  # launches whose rule and layout were checked
+
+
+def _launch(lib, n: int, k: int, itemsize: int, forced, what: str) -> tuple[int, int]:
+    """``(team, per_block)`` of the launch for the shape. Before a launch
+    configuration's first use the source's rule (``chol_team``) and
+    shared-memory count are checked against this module's (a mismatch
+    raises); the verdict is kept, since both are functions of the shape alone
+    and a staged step launches the same few shapes hundreds of times."""
+    rule = team_for(n, k, itemsize)
+    team = forced or rule[0]
+    key = (n, k, itemsize, team)
+    if key not in _verified:
+        per = ctypes.c_int(0)
+        if lib.chol_team(n, k, itemsize, ctypes.byref(per)) != rule[0] or per.value != rule[1]:
+            raise RuntimeError(f"{what}: launch rule of wrapper and kernel differ at n={n}, k={k}")
+        if lib.chol_smem_bytes(n, k, itemsize, team) != smem_bytes(n, k, itemsize, team):
+            raise RuntimeError(f"{what}: shared-memory layout of wrapper and kernel differ")
+        _verified.add(key)
+    return team, per_block_of(n, k, itemsize, team)
+
+
+def cholesky_batched(H: Tensor, *, team: int | None = None) -> Tensor:
     """Batched Cholesky of symmetric positive definite matrices:
     ``(B, n, n)`` -> lower ``L (B, n, n)`` with zeros above the diagonal. Only
     the lower triangle of ``H`` is read. It never raises on a matrix that is
     not positive definite: from the first pivot that is not > 0 on, the
     columns of ``L`` are NaN, and a solve with that ``L`` is NaN throughout.
 
-    CUDA tensors go to the kernel (registers up to n = 128, shared memory up
-    to :func:`cholesky_max_n`; past that, by size, to
-    ``torch.linalg.cholesky_ex``); CPU tensors to the plain version."""
+    CUDA tensors go to the kernel (one instance per team of 1, 2 or 8 warps,
+    the matrix in registers up to n = 128, in shared memory up to
+    :func:`cholesky_max_n`; past that, by size, to
+    ``torch.linalg.cholesky_ex``), with ``team`` warps per instance (None:
+    the launch rule's :func:`team_for`); a team that does not take the shape
+    raises ``ValueError``, a failed build or launch raises. CPU tensors go to
+    the plain version."""
     if H.ndim != 3 or H.shape[1] != H.shape[2]:
         raise ValueError(f"cholesky_batched: expected (B, n, n), got {tuple(H.shape)}")
+    B, n, _ = H.shape
+    forced = _forced("cholesky_batched", n, 0, H.element_size(), team)
     if H.device.type == "cpu":
         return cholesky_batched_plain(H)
     _require_cuda(H, "cholesky_batched")
-    B, n, _ = H.shape
-    if _chol_factor_smem_bytes(n, H.element_size()) > MAX_SMEM_BYTES:
+    if team_for(n, 0, H.element_size())[0] == 0:  # past cholesky_max_n
         return _cholesky_library(H)
     H = H.contiguous()
     L = torch.empty_like(H)
     if B == 0 or n == 0:
         return L
     lib = _chol_lib()
+    t, p = _launch(lib, n, 0, H.element_size(), forced, "cholesky_batched")
     fn = getattr(lib, f"chol_factor_{_SUFFIX[H.dtype]}")
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(H.data_ptr(), L.data_ptr(), B, n, stream)
+        code = fn(H.data_ptr(), L.data_ptr(), B, n, t, stream)
     from . import _build
 
-    _build.check(lib, code, "cholesky_batched")
+    _build.check(lib, code, f"cholesky_batched ({p} per block, teams of {t} warps)")
     cholesky_batched.launches += 1
+    cholesky_batched.launches_by_shape[(n, 0)] += 1
     return L
 
 
 cholesky_batched.launches = 0
+cholesky_batched.launches_by_shape = collections.Counter()  # (n, 0) -> launches
 
 
-def cholesky_solve_batched(L: Tensor, rhs: Tensor) -> Tensor:
+def cholesky_solve_batched(L: Tensor, rhs: Tensor, *, team: int | None = None) -> Tensor:
     """Solve ``L L' x = rhs``; ``L (B, n, n)`` lower (its lower triangle is
     read), rhs ``(B, n)`` or ``(B, n, k)``.
 
-    CUDA tensors go to the kernel (n <= 256 and L, the right-hand sides in
-    227 KB of shared memory; past that, by size, to ``torch.cholesky_solve``);
-    CPU tensors to the plain version."""
+    CUDA tensors go to the kernel (n <= 256 and L's packed triangle in 227 KB
+    of shared memory; past that, by size, to ``torch.cholesky_solve``), with
+    ``team`` warps per instance (None: the launch rule's :func:`team_for`); a
+    team that does not take the shape raises ``ValueError``, a failed build or
+    launch raises. CPU tensors go to the plain version."""
     if L.ndim != 3 or L.shape[1] != L.shape[2] or rhs.shape[:2] != L.shape[:2] or rhs.ndim not in (2, 3):
         raise ValueError(f"cholesky_solve_batched: shapes L {tuple(L.shape)}, rhs {tuple(rhs.shape)}")
+    B, n, _ = L.shape
+    k = 1 if rhs.ndim == 2 else rhs.shape[2]
+    forced = _forced("cholesky_solve_batched", n, max(k, 1), L.element_size(), team)
     if L.device.type == "cpu":
         return cholesky_solve_batched_plain(L, rhs)
     _require_cuda(L, "cholesky_solve_batched")
     if rhs.device != L.device or rhs.dtype != L.dtype:
         raise ValueError("cholesky_solve_batched: L and rhs must share device and dtype")
-    B, n, _ = L.shape
-    k = 1 if rhs.ndim == 2 else rhs.shape[2]
-    if n > _CHOL_SOLVE_MAX_ROWS or _chol_solve_smem_bytes(n, k, L.element_size()) > MAX_SMEM_BYTES:
+    if k > 0 and team_for(n, k, L.element_size())[0] == 0:
         out = torch.cholesky_solve(rhs[..., None] if rhs.ndim == 2 else rhs, L)
         return out[..., 0] if rhs.ndim == 2 else out
     L, rhs = L.contiguous(), rhs.contiguous()
@@ -301,18 +441,21 @@ def cholesky_solve_batched(L: Tensor, rhs: Tensor) -> Tensor:
     if B == 0 or n == 0 or k == 0:
         return out
     lib = _chol_lib()
+    t, p = _launch(lib, n, k, L.element_size(), forced, "cholesky_solve_batched")
     fn = getattr(lib, f"chol_solve_{_SUFFIX[L.dtype]}")
     with torch.cuda.device(L.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(L.data_ptr(), rhs.data_ptr(), out.data_ptr(), B, n, k, stream)
+        code = fn(L.data_ptr(), rhs.data_ptr(), out.data_ptr(), B, n, k, t, stream)
     from . import _build
 
-    _build.check(lib, code, "cholesky_solve_batched")
+    _build.check(lib, code, f"cholesky_solve_batched ({p} per block, teams of {t} warps)")
     cholesky_solve_batched.launches += 1
+    cholesky_solve_batched.launches_by_shape[(n, k)] += 1
     return out
 
 
 cholesky_solve_batched.launches = 0
+cholesky_solve_batched.launches_by_shape = collections.Counter()  # (n, k) -> launches
 
 
 def ldl_batched(K: Tensor):

@@ -2,6 +2,7 @@
 iteration, and how far rounding alone moves either.
 
     python3 -m diffopt_tpu_torch.tools.k6_divergence [--batch 1024] [--iters 14]
+    python3 -m diffopt_tpu_torch.tools.k6_divergence --mixed 0 1 2 3 [--batch 512]
 
 On one SDP batch of side 4 (``make_sdp_batch``, the ``[kernels]`` f64 case of
 ``chip_smoke.py``) and one SOCP batch (n = 16, SOC(17)) it prints:
@@ -21,6 +22,15 @@ On one SDP batch of side 4 (``make_sdp_batch``, the ``[kernels]`` f64 case of
   (median and mean per-instance relative error), their iteration counts, and
   the residuals each reports for the state it returns against that state's
   residuals evaluated in f64.
+
+With ``--mixed SEED ...`` it prints instead, for each seed, on the layout
+with every symmetric kind (``make_mixed_batch``, f64, B = 512 as in
+``chip_smoke.py``'s ``mixed f64`` checks, drawn from a generator seeded so):
+``[mixed]``, the per-instance relative difference between the kernel and the
+plain version where both took the same number of steps (the quantity those
+checks hold at 5e-9), and ``[mixed rounding]``, how far a one-ulp change of
+the data moves each version on the instances where the two part by more than
+1e-9.
 
 It needs a card; the plain version runs on the card too.
 """
@@ -57,10 +67,50 @@ def _ulp(t, gen):
                        torch.nextafter(t, torch.full_like(t, float("-inf"))))
 
 
+def mixed(seeds, B, gen):
+    """The kernel against its plain version on the mixed layout, one draw per seed, and the one-ulp
+    witness on the instances where the two part by more than 1e-9 (see the module note)."""
+    from diffopt_tpu_torch.ops.cuda import conic_pdip
+    from diffopt_tpu_torch.solvers.conic_ipm import internal_rows
+    from diffopt_tpu_torch.utils.testing import make_mixed_batch
+
+    worst = 0.0
+    for seed in seeds:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        data, lay, _ = internal_rows(make_mixed_batch(B, torch.float64, "cuda", g))
+        kw = _kw(torch.float64, 50)
+        k, p = conic_pdip.solve_tile_fused(*data, lay, **kw), conic_pdip.solve_tile_fused_plain(*data, lay, **kw)
+        gap, same = _diff(k, p), k[4] == p[4]
+        at_same = gap[same]
+        top = float(at_same.max()) if bool(same.any()) else 0.0
+        worst = max(worst, top)
+        print(f"[mixed] seed {seed} f64 B={B}: same iteration count on {int(same.sum())} of {B}; there kernel vs"
+              f" plain {_q(at_same)}, above 2.5e-9 on {int((at_same > 2.5e-9).sum())}, above 5e-9 on"
+              f" {int((at_same > 5e-9).sum())}; elsewhere max {float(gap[~same].max()) if bool((~same).any()) else 0.0:.3e}")
+        pert = [_ulp(t, gen) for t in data]
+        pk, pp = conic_pdip.solve_tile_fused(*pert, lay, **kw), conic_pdip.solve_tile_fused_plain(*pert, lay, **kw)
+        dk, dp = _diff(pk, k), _diff(pp, p)
+        apart = same & (gap > 1e-9)
+        kept = pp[4] == p[4]  # the plain version's step count unchanged by the one-ulp change
+        print(f"[mixed rounding] seed {seed}: plain vs plain on one-ulp data {_q(dp)}; where its step count did not"
+              f" change ({int(kept.sum())} of {B}) max {float(dp[kept].max()):.3e}, above 5e-9 on"
+              f" {int((dp[kept] > 5e-9).sum())}; kernel vs kernel {_q(dk)}")
+        if bool(apart.any()):
+            idx = apart.nonzero().flatten().tolist()
+            print(f"[mixed rounding] seed {seed}: the {len(idx)} instances where kernel and plain part by more than"
+                  f" 1e-9 (same steps): kernel vs plain / plain moved by one ulp / kernel moved by one ulp: "
+                  + ", ".join(f"{float(gap[i]):.2e} / {float(dp[i]):.2e} / {float(dk[i]):.2e}" for i in idx[:12])
+                  + f"; the plain version moves at least as far on {int((dp[apart] >= gap[apart]).sum())}")
+    print(f"[mixed] over seeds {list(seeds)}: the largest kernel-vs-plain difference at the same step count"
+          f" {worst:.3e} (held at 5e-9)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--batch", type=int, default=None, help="instances (default 1024, or 512 with --mixed)")
     ap.add_argument("--iters", type=int, default=14, help="the last k of the trajectory")
+    ap.add_argument("--mixed", type=int, nargs="+", default=None, help="seeds of mixed-layout draws")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k6_divergence: no CUDA device")
@@ -74,7 +124,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    B = args.batch
+    if args.mixed is not None:
+        mixed(args.mixed, args.batch or 512, gen)
+        print(card)
+        return
+    B = args.batch or 1024
     cases = [("SDP side 4", make_sdp_batch(B, 4, seed=4, dtype=torch.float64)),
              ("SOCP n=16", make_socp_batch(B, n=16, seed=2, dtype=torch.float64))]
     for label, cp in cases:

@@ -1,4 +1,4 @@
-"""SHA-256 digests of the outputs of kernels K2-K7 on fixed batches.
+"""SHA-256 digests of the outputs of kernels K1-K7 on fixed batches.
 
     python3 -m diffopt_tpu_torch.tools.kernel_digest
 
@@ -7,9 +7,11 @@ same digests; so this shows, bit for bit, that an edit to code the kernels
 share (``csrc/dense.cuh``, ``csrc/ipm.cuh``) left a kernel's results as they
 were. Run it in two checkouts, in one call on one card, and compare the lines
 (to run it against a checkout that lacks it: ``PYTHONPATH=<checkout> python3
-<this file>``). Every batch is made on the card from a seed: K2 / K3 on
-quasi-definite matrices of N = 112, K4 / K5 on SPD matrices of n = 64 and 34,
-K6 on the SOCP (n = 16, SOC(17)) in f32 and f64 and the SDP of psd side 4,
+<this file>``). Every batch is made on the card from a seed: K1 on the QP
+main path's shape (n = 64, m = 32, p = 16) and on n = 32, m = 16, p = 8 in f32
+and f64, K2 / K3 on quasi-definite matrices of N = 112, K4 / K5 on SPD
+matrices at every shape the port launches them at (n = 3, 6, 16, 17, 18, 34,
+44, 64, 144 and 160; k = 1, 3 and 16 at each), K6 on the SOCP (n = 16, SOC(17)) in f32 and f64 and the SDP of psd side 4,
 K7 on the entropy family (k = 3) in f32 and f64 and the dual-exp family in
 f64.
 """
@@ -53,13 +55,17 @@ def _dual_exp(B, dtype, gen):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_digest: no CUDA device")
-    from diffopt_tpu_torch.ops.cuda import chol, conic_pdip, ns_pdip
+    from diffopt_tpu_torch.ops.cuda import chol, conic_pdip, ns_pdip, pdip
     from diffopt_tpu_torch.solvers import conic_ipm
-    from diffopt_tpu_torch.utils.testing import make_entropy_batch, make_sdp_batch, make_socp_batch
+    from diffopt_tpu_torch.utils.testing import make_batch, make_entropy_batch, make_sdp_batch, make_socp_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     for dt in (torch.float32, torch.float64):
         tag = "f32" if dt == torch.float32 else "f64"
+        for n, m, p in ((64, 32, 16), (32, 16, 8)):
+            qp = make_batch(8192 if dt == torch.float32 else 2048, n, m, p, dt, DEVICE, _gen(5))
+            sol, it = pdip.solve_batched_fused(qp, max_iters=25, return_iters=True)
+            print(f"[digest] K1 pdip_fused {tag} n={n} m={m} p={p}: {digest(sol.z, sol.lam, sol.nu, it)}")
         gen = _gen(1)
         N, B = 112, 4096
         M = torch.randn(B, N, N, dtype=dt, device=DEVICE, generator=gen)
@@ -70,14 +76,15 @@ def main():
         rhs = torch.randn(B, N, 3, dtype=dt, device=DEVICE, generator=gen)
         print(f"[digest] K2 ldl_factor {tag} N={N}: {digest(L, d)}")
         print(f"[digest] K3 ldl_solve {tag} N={N} k=3: {digest(chol.ldl_solve_batched(L, d, rhs))}")
-        for n in (64, 34):
-            M = torch.randn(B, n, n, dtype=dt, device=DEVICE, generator=gen)
+        for n in (64, 34, 6, 16, 17, 160, 3, 18, 44, 144):
+            Bn = 256 if n > 128 else B
+            M = torch.randn(Bn, n, n, dtype=dt, device=DEVICE, generator=gen)
             H = M @ M.transpose(1, 2) / n + torch.eye(n, dtype=dt, device=DEVICE)
             Lc = chol.cholesky_batched(H)
-            r = torch.randn(B, n, 16, dtype=dt, device=DEVICE, generator=gen)
+            r = torch.randn(Bn, n, 16, dtype=dt, device=DEVICE, generator=gen)
             print(f"[digest] K4 chol_factor {tag} n={n}: {digest(Lc)}")
-            print(f"[digest] K5 chol_solve {tag} n={n} k=1, 16: "
-                  f"{digest(chol.cholesky_solve_batched(Lc, r[..., :1]), chol.cholesky_solve_batched(Lc, r))}")
+            xs = [chol.cholesky_solve_batched(Lc, r[..., :k].contiguous()) for k in (1, 3, 16)]
+            print(f"[digest] K5 chol_solve {tag} n={n} k=1, 3, 16: {digest(*xs)}")
     cases = [
         ("SOCP f32", make_socp_batch(8192, n=16, seed=1, device=DEVICE)),
         ("SOCP f64", make_socp_batch(2048, n=16, seed=2, dtype=torch.float64, device=DEVICE)),

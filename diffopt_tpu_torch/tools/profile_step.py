@@ -102,7 +102,7 @@ def main():
     )
     by = lambda *keys: sum(e.self_device_time_total for e in events if any(k in e.key for k in keys)) / 1e3
     ours = {"K1 pdip": by("pdip_kernel"), "K2 ldl_factor": by("ldl_factor_kernel"), "K3 ldl_solve": by("ldl_solve_kernel"),
-            "K4 chol_factor": by("chol_factor_kernel"), "K5 chol_solve": by("chol_solve_kernel"),
+            "K4 chol_factor": by("chol_factor_"), "K5 chol_solve": by("chol_solve_"),
             "K6 conic_pdip": by("conic_kernel"), "K7 ns_pdip": by("ns_kernel")}
     own_ms = sum(ours.values())
     print("hand-written kernels: " + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items() if v)

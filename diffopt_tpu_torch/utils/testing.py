@@ -106,6 +106,50 @@ def make_sdp_batch(B, side=4, n=3, seed=0, dtype=torch.float32, device="cuda"):
     )
 
 
+def make_mixed_batch(B, dtype=torch.float64, device="cuda", generator=None):
+    """A batch with every symmetric cone kind: zero(2) + nonneg(3) +
+    nonpos(2) + soc(4) + rsoc(3) + psd(side 3), n = 5, drawn on ``device``
+    from ``generator``; strictly feasible (b from an interior slack) and
+    bounded (c from an interior dual)."""
+    from ..cones import ConeSpec
+    from ..ir import ConeProgram
+
+    n = 5
+    blocks = [("zero", 2), ("nonneg", 3), ("nonpos", 2), ("soc", 4), ("rsoc", 3), ("psd", 6)]
+    rnd = lambda *shape: torch.randn(*shape, dtype=dtype, device=device, generator=generator)
+
+    def interior():
+        parts = []
+        for kind, d in blocks:
+            if kind == "nonneg":
+                parts.append(rnd(B, d).abs() + 0.5)
+            elif kind == "nonpos":
+                parts.append(-rnd(B, d).abs() - 0.5)
+            elif kind == "soc":
+                t = rnd(B, d)
+                parts.append(torch.cat([t[:, 1:].norm(dim=1, keepdim=True) + 1.0, t[:, 1:]], 1))
+            elif kind == "rsoc":  # 2 t u >= ||x||^2
+                t = rnd(B, d)
+                parts.append(torch.cat([1.0 + (t[:, 2:] ** 2).sum(1, keepdim=True), torch.ones_like(t[:, :1]),
+                                        t[:, 2:]], 1))
+            elif kind == "psd":
+                M = rnd(B, 3, 3)
+                S = M @ M.transpose(1, 2) + 3 * torch.eye(3, dtype=dtype, device=device)
+                parts.append(torch.stack([S[:, r, c] * (1.0 if r == c else 2**0.5)
+                                          for c in range(3) for r in range(c + 1)], 1))
+            else:
+                parts.append(None)
+        return parts
+
+    m = sum(d for _, d in blocks)
+    A = rnd(B, m, n)
+    s0 = torch.cat([torch.zeros(B, d, dtype=dtype, device=device) if x is None else x
+                    for x, (_, d) in zip(interior(), blocks)], 1)
+    y0 = torch.cat([rnd(B, d) if x is None else x for x, (_, d) in zip(interior(), blocks)], 1)
+    b = torch.einsum("bij,bj->bi", A, rnd(B, n)) + s0
+    return ConeProgram(A, b, -torch.einsum("bij,bi->bj", A, y0), ConeSpec(blocks))
+
+
 def make_entropy_batch(B, k=3, seed=0, dtype=torch.float32, device="cuda"):
     """Weighted entropy maximisation ``max sum_i w_i t_i s.t. sum x = 1, (t_i, x_i, 1) in K_exp``
     (``t_i <= -x_i log x_i``), weights w uniform in [0.5, 2] per instance — the family of the JAX

@@ -165,3 +165,97 @@ def test_cholesky_envelope_and_shape_checks():
         tchol.cholesky_batched(torch.zeros(2, 3, 4))
     with pytest.raises(ValueError):
         tchol.cholesky_solve_batched(torch.zeros(2, 3, 3), torch.zeros(2, 4))
+
+
+# --- the Cholesky pair's launch rule (mirror of chol_team in csrc/chol.cu) -----------------
+
+
+def _rule_table(n, k, itemsize):
+    """chol_team of csrc/chol.cu written out as a table: the factor on one warp to 40 rows (two
+    instances to a block), two warps to 64, eight past that; the solve on
+    one warp per instance at k = 1, four to a block while their packed triangles fit 227 KB (f32 to
+    n = 169, f64 to 120), then two (f32 to 240, f64 to 169), then one; at k = 16 a team of two
+    warps, one instance to a block."""
+    if k == 0:
+        return (1, 2) if n <= 40 else (2, 1) if n <= 64 else (8, 1)
+    if k == 16:
+        return (2, 1)
+    four, two = (169, 240) if itemsize == 4 else (120, 169)
+    return (1, 4) if n <= four else (1, 2) if n <= two else (1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cholesky_launch_rule_takes_every_shape_and_is_monotone(dtype):
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    top = tchol.cholesky_max_n(dtype)
+    for k in (0, 1, 16):
+        threads = 0
+        for n in range(1, top + 1):
+            team, per = tchol.team_for(n, k, itemsize)
+            assert (team, per) == _rule_table(n, k, itemsize), (n, k)
+            assert tchol.team_takes(n, k, itemsize, team), (n, k, team)
+            assert per == tchol.per_block_of(n, k, itemsize, team)
+            assert tchol.smem_bytes(n, k, itemsize, team) <= tchol.MAX_SMEM_BYTES
+            assert 32 * team >= threads  # never fewer warps per instance for a larger n
+            threads = 32 * team
+            if k == 0 and n <= 128:  # the factor's team holds n rows in its register tiles
+                assert n <= tchol.tile_max_n(team)
+    # the solve takes every n to 256 in f32, and its packed triangle is what bounds f64 (n <= 240)
+    assert tchol.team_for(256, 1, 4) == (1, 1) and tchol.team_for(257, 1, 4) == (0, 0)
+    assert tchol.team_for(240, 1, 8) == (1, 1) and tchol.team_for(241, 1, 8) == (0, 0)
+
+
+def test_cholesky_envelope_unchanged():
+    # the factor's envelope is what the shared-memory route past 128 rows holds, as before
+    assert tchol.cholesky_max_n(torch.float32) == 240 and tchol.cholesky_max_n(torch.float64) == 169
+    assert tchol.team_for(241, 0, 4) == (0, 0) and tchol.team_for(170, 0, 8) == (0, 0)
+    assert tchol.team_for(129, 0, 4) == (8, 1)  # past the register tiles: eight warps, shared memory
+
+
+def test_cholesky_forced_launch_off_its_shape_raises_and_cpu_launches_nothing():
+    H, rng = _spd(4, 64, seed=11)
+    Ht = torch.from_numpy(H)
+    rhs = torch.from_numpy(rng.normal(size=(4, 64)))
+    for team in (1, 4, 3):  # one warp's tiles hold 40 rows; teams of 3 and 4 warps are not built
+        with pytest.raises(ValueError):
+            tchol.cholesky_batched(Ht, team=team)
+    for team in (2, 8):  # one right-hand side: one warp
+        with pytest.raises(ValueError):
+            tchol.cholesky_solve_batched(Ht, rhs, team=team)
+    for team in (1, 8):  # several right-hand sides: two warps
+        with pytest.raises(ValueError):
+            tchol.cholesky_solve_batched(Ht, rhs[..., None].expand(4, 64, 3), team=team)
+    before = (tchol.cholesky_batched.launches, tchol.cholesky_solve_batched.launches,
+              dict(tchol.cholesky_batched.launches_by_shape), dict(tchol.cholesky_solve_batched.launches_by_shape))
+    # a launch that takes the shape runs the plain version on CPU tensors: the same result as the rule's
+    L = tchol.cholesky_batched(Ht, team=8)
+    assert torch.equal(L, tchol.cholesky_batched(Ht))
+    x = tchol.cholesky_solve_batched(L, rhs, team=1)
+    np.testing.assert_allclose(H @ x.numpy()[..., None], rhs.numpy()[..., None], rtol=0, atol=1e-10)
+    after = (tchol.cholesky_batched.launches, tchol.cholesky_solve_batched.launches,
+             dict(tchol.cholesky_batched.launches_by_shape), dict(tchol.cholesky_solve_batched.launches_by_shape))
+    assert after == before
+
+
+@pytest.fixture(scope="module")
+def staged_schur_case():
+    """The staged QP solver's Schur complement shape, n = p = 16 with k = p = 16 right-hand sides,
+    factored and solved by the Pallas kernels (interpret mode) in one jitted call."""
+    H, rng = _spd(8, 16, seed=16)
+    rhs = rng.normal(size=(8, 16, 16))
+
+    def both(h, r):
+        L = jchol.cholesky_batched(h)
+        return L, jchol.cholesky_solve_batched(L, r)
+
+    Lj, xj = jax.jit(both)(jnp.asarray(H), jnp.asarray(rhs))
+    return H, rhs, np.asarray(Lj), np.asarray(xj)
+
+
+def test_cholesky_pair_plain_matches_pallas_at_the_staged_schur_shape(staged_schur_case):
+    H, rhs, Lj, xj = staged_schur_case
+    Lt = tchol.cholesky_batched(torch.from_numpy(H))
+    np.testing.assert_allclose(Lt.numpy(), Lj, rtol=0, atol=1e-12)
+    xt = tchol.cholesky_solve_batched(Lt, torch.from_numpy(rhs)).numpy()
+    np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(H @ xt, rhs, rtol=0, atol=1e-11)

@@ -11,7 +11,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 2. build: compiles ``diffopt_tpu_torch/csrc/*.cu`` with ``nvcc`` (first use);
 3. kernels against their plain PyTorch versions on the card, at the shapes the
    two paths give them (fused solver and LDL' pair: n = 64, m = 32, p = 16,
-   N = 112, k = 1), f32 at the full batch and f64 at a smaller one; the
+   N = 112, k = 1), f32 at the full batch and f64 at a smaller one; the LDL'
+   pair (K2 / K3) also at ``[qp100]``'s N = 172 (B = 8192, f32; N = 169, the
+   end of the f64 envelope, in f64), at N = 24, 64 and 100 (a small N for each
+   team the rule picks), and at N = 160, each at every team that takes it,
+   with a tail batch, timed by team; the
    Cholesky pair (K4 / K5) at every shape a path here launches it at and a
    few beside them (factor n = 3, 6, 16, 17, 18, 34, 44, 64, 144, 160; solve
    (n, k) = (3, 1), (6, 1), (16, 1), (16, 16), (17, 1), (18, 1), (34, 1),
@@ -62,9 +66,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    program and on the entropy family, the exp / pow DPi against a central
    difference of Pi, and a padded heterogeneous exp / pow batch;
 8. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``,
-   ``exp``, ``k6_teams``, ``k1_teams``, ``chol_teams`` and ``{"kernels": [...]}``
-   (K1-K7; K4 and K5 one entry per shape a path launched them at, with its
-   launches per step on each path),
+   ``exp``, ``k6_teams``, ``k1_teams``, ``chol_teams``, ``ldl_teams`` and
+   ``{"kernels": [...]}`` (K1-K7; K2 and K3 at N = 112 and 172, K4 and K5 one
+   entry per shape a path launched them at, with its launches per step on
+   each path),
    the card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 """
@@ -362,96 +367,28 @@ def phase_kernels(batch, gen):
                   f" {b_ms:.3f} ms by {b_by}); ms by team " + k1_teams_text(n, m, p, ms_by_team))
         del held
 
-        # --- K2: LDL' factor --------------------------------------------------
+        # --- K2 / K3: LDL' factor and solve on the path's KKT systems, at every team that takes N ----------
         K = kkt_systems(qp, sol)
         rhs = torch.randn(B, N, dtype=dtype, device=DEVICE, generator=gen)
         del qp, sol, psol
-        L, d = chol.ldl_batched(K)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        Lp, dp = chol.ldl_batched_plain(K)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err_f = float((L - Lp).abs().max())
-        lscale = float(Lp.abs().max())
-        err_d = float(((d - dp) / dp).abs().max())
-        recon = float((L @ (d[:, :, None] * L.transpose(1, 2)) - K).abs().max() / K.abs().max())
-        print(
-            f"[kernels] ldl_factor {tag} B={B} N={N}: max|dL| = {err_f:.3e} (largest entry {lscale:.3e}), max|dd/d| ="
-            f" {err_d:.3e} (tol {TOL_LDL[dtype]:.0e}, relative); |L D L' - K| / |K| = {recon:.3e}"
-        )
-        check(bool(torch.isfinite(L).all() and torch.isfinite(d).all()), "ldl_factor: non-finite output")
-        check(err_f <= TOL_LDL[dtype] * lscale, f"ldl_factor {tag}: L disagrees with its plain version")
-        check(err_d <= TOL_LDL[dtype], f"ldl_factor {tag}: d disagrees with its plain version")
-        check(recon <= TOL_LDL[dtype], f"ldl_factor {tag} does not reconstruct K")
-        if main:
-            ms = time_ms(lambda: chol.ldl_batched(K), reps=5)
-            lib_ms = time_ms(lambda: torch.linalg.lu_factor(K), reps=2)
-            # K is symmetric: its lower triangle is all the function needs; L (with its zeroed upper
-            # triangle) and d are written in full
-            b_ms, b_by = bound(B * K.element_size() * (N * (N + 1) // 2 + N * N + N), B * N**3 / 3)
-            entries["ldl_factor"] = dict(
-                name="ldl_factor", route="cuda", source="diffopt_tpu_torch/csrc/ldl.cu",
-                replaces="diffopt_tpu/ops/pallas/chol.py:171", max_abs_err=err_f, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            )
-
-        # --- K3: LDL' solve ---------------------------------------------------
-        x = chol.ldl_solve_batched(L, d, rhs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        xp = chol.ldl_solve_batched_plain(L, d, rhs)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err_s = float((x - xp).abs().max())
-        xscale = float(xp.abs().max())
-        # residual of the factored system (L D L') x = rhs, in f64
-        Ld = L.double()
-        resid = torch.einsum("bij,bj->bi", Ld, d.double() * torch.einsum("bji,bj->bi", Ld, x.double())) - rhs.double()
-        rel_res = float(resid.abs().max() / rhs.abs().max())
-        print(
-            f"[kernels] ldl_solve {tag} B={B} N={N} k=1: max|dx| = {err_s:.3e} (largest entry {xscale:.3e},"
-            f" tol {TOL_SOLVE[dtype]:.0e} of it); |L D L' x - rhs| / |rhs| = {rel_res:.3e}"
-        )
-        check(bool(torch.isfinite(x).all()), "ldl_solve: non-finite output")
-        check(err_s <= TOL_SOLVE[dtype] * xscale, f"ldl_solve {tag} disagrees with its plain version")
-        if main:
-            ms = time_ms(lambda: chol.ldl_solve_batched(L, d, rhs), reps=5)
-            lu, piv = torch.linalg.lu_factor(K)
-            lib_ms = time_ms(lambda: torch.linalg.lu_solve(lu, piv, rhs[..., None]), reps=2)
-            del lu, piv
-            # the strict lower triangle of L, d and rhs read, x written
-            b_ms, b_by = bound(B * L.element_size() * (N * (N - 1) // 2 + 3 * N), B * 2 * N * N)
-            entries["ldl_solve"] = dict(
-                name="ldl_solve", route="cuda", source="diffopt_tpu_torch/csrc/ldl.cu",
-                replaces="diffopt_tpu/ops/pallas/chol.py:188", max_abs_err=err_s, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            )
+        recs = _hold_ldl(chol, K, rhs, main)
         # several right-hand sides at once
         rhs3 = torch.randn(min(B, 512), N, 3, dtype=dtype, device=DEVICE, generator=gen)
-        x3 = chol.ldl_solve_batched(L[:512], d[:512], rhs3)
-        x3p = chol.ldl_solve_batched_plain(L[:512], d[:512], rhs3)
-        check(
-            float((x3 - x3p).abs().max()) <= TOL_SOLVE[dtype] * float(x3p.abs().max()),
-            f"ldl_solve {tag} k=3 disagrees with its plain version",
-        )
-        del K, L, d, Lp, dp, x, xp, rhs, Ld, resid
+        _hold_ldl(chol, K[:512].contiguous(), rhs3, False, solve_only=True)
+        if main:  # the main path's entries keep their names
+            entries["ldl_factor"], entries["ldl_solve"] = (dict(r, name=nm) for r, nm in zip(recs, ("ldl_factor", "ldl_solve")))
+            entries["ldl_teams_main"] = ldl_teams_records(recs)
+        del K, rhs, rhs3
         torch.cuda.empty_cache()
 
-    # --- K2 / K3 past N = 128, where the factor works in shared memory, not in register tiles ---
+    # --- K2 / K3 at N = 160 (eight warps, the register tiles' largest cover in f32) ---
     Nbig = 160
     Kb = torch.randn(256, Nbig, Nbig, dtype=torch.float32, device=DEVICE, generator=gen)
     Kb = Kb @ Kb.transpose(1, 2) / Nbig + torch.eye(Nbig, device=DEVICE)
     Kb[:, Nbig // 2:, Nbig // 2:] *= -1.0  # quasi-definite: [[P, C'], [C, -R]]
     Kb = torch.tril(Kb) + torch.tril(Kb, -1).transpose(1, 2)
-    Lb, db = chol.ldl_batched(Kb)
-    Lbp, dbp = chol.ldl_batched_plain(Kb)
-    err_b = max(float((Lb - Lbp).abs().max() / Lbp.abs().max()), float(((db - dbp) / dbp).abs().max()))
     rb = torch.randn(256, Nbig, dtype=torch.float32, device=DEVICE, generator=gen)
-    xb, xbp = chol.ldl_solve_batched(Lb, db, rb), chol.ldl_solve_batched_plain(Lb, db, rb)
-    err_x = float((xb - xbp).abs().max() / xbp.abs().max())
-    print(f"[kernels] ldl_factor / ldl_solve f32 N={Nbig} B=256: relative diff {err_b:.3e} / {err_x:.3e} (tol 2e-3)")
-    check(err_b <= TOL_LDL[torch.float32] and err_x <= TOL_SOLVE[torch.float32], "LDL' past N = 128 disagrees with plain")
+    _hold_ldl(chol, Kb, rb, False)
 
     # --- K1 off the main path's shape: Q, G, A left in device memory (working set too large to
     # stage beside H in f64) ---
@@ -469,6 +406,182 @@ def phase_kernels(batch, gen):
           " (tol 1e-06)")
     check(worst <= 1e-6, f"pdip_fused at n = {n2} disagrees with its plain version")
     return entries
+
+
+def _quasi_definite(B, N, dtype, g):
+    """[[P, C'], [C, -R]] with P, R positive definite, the first 58% of the rows positive (the QP paths'
+    n of N), symmetric, on the card."""
+    M = torch.randn(B, N, N, dtype=dtype, device=DEVICE, generator=g)
+    K = M @ M.transpose(1, 2) / N + torch.eye(N, dtype=dtype, device=DEVICE)
+    n1 = (N * 58 + 99) // 100
+    K[:, n1:, n1:] *= -1.0
+    return (torch.tril(K) + torch.tril(K, -1).transpose(1, 2)).contiguous()
+
+
+def _ldl_teams_run(chol, op, N, k, item, run, ref_check, args, outs_of, B, dtype, main, tag):
+    """Every team that takes the shape: its output held by ref_check, the same bits at every team, a tail
+    batch of B - 3 through the library; device ms by team (CUDA graph) and instances per SM where main.
+    Returns (the rule's output, its team and per block, ms by team, instances per SM, teams)."""
+    kk = 0 if op == "factor" else k
+    teams = [t for t in (chol.FACTOR_TEAMS if op == "factor" else chol.LDL_SOLVE_TEAMS) if chol.ldl_team_takes(N, kk, item, t)]
+    rule = chol.ldl_team_for(N, kk, item)
+    check(rule[0] in teams, f"ldl {op} {tag}: the rule's team {rule[0]} does not take the shape")
+    outs, ms_by, resident = {}, {}, {}
+    for t in teams:
+        out = run(team=t)
+        ref_check(out, t)
+        outs[t] = out
+        Bt = B - 3 if B > 3 else B
+        bufs = [torch.full_like(o, 7.0) for o in outs_of(out)]
+        _raw_tail(chol._ldl_lib(), "ldl", op, args, bufs, Bt, N, k, t)
+        check(all(torch.equal(bf[:Bt], o[:Bt]) and bool((bf[Bt:] == 7.0).all()) for bf, o in zip(bufs, outs_of(out))),
+              f"ldl {op} {tag} team {t}: a tail batch of {Bt} differs or writes past its end")
+        if main:
+            ms_by[str(t)] = graph_ms(lambda: run(team=t))
+            resident[str(t)] = chol.ldl_blocks_per_sm(N, kk, dtype, t)
+            torch.cuda.empty_cache()
+    same = all(all(torch.equal(a, b) for a, b in zip(outs_of(o), outs_of(outs[rule[0]]))) for o in outs.values())
+    check(same, f"ldl {op} {tag}: teams {teams} give different bits")
+    return outs[rule[0]], rule, ms_by, resident, teams
+
+
+def _hold_ldl(chol, K, rhs, main, solve_only=False):
+    """K2 on the quasi-definite batch K and K3 with its factor and the right-hand sides rhs, against their
+    plain versions at the unchanged TOL_LDL / TOL_SOLVE, at every team that takes the shape (the same bits
+    at every team), each with a tail batch; where main (f32 at a path's batch): device ms and instances per
+    SM by team, and the records of the ``kernels`` line (bound, plain and library ms). Returns the two
+    records (None where not main)."""
+    B, N, dtype = K.shape[0], K.shape[1], K.dtype
+    item = K.element_size()
+    k = 1 if rhs.ndim == 2 else rhs.shape[2]
+    tag = ("f32" if dtype == torch.float32 else "f64") + f" B={B} N={N}"
+    (Lp, dp), plain_f = wall_ms(lambda: chol.ldl_batched_plain(K))
+    lscale = float(Lp.abs().max())
+    recs = [None, None]
+    if not solve_only:
+        def factor_check(out, t):
+            L, d = out
+            err_f, err_d = float((L - Lp).abs().max()), float(((d - dp) / dp).abs().max())
+            check(bool(torch.isfinite(L).all() and torch.isfinite(d).all()), f"ldl_factor {tag} team {t}: non-finite output")
+            check(err_f <= TOL_LDL[dtype] * lscale, f"ldl_factor {tag} team {t}: L {err_f:.3e} from its plain version")
+            check(err_d <= TOL_LDL[dtype], f"ldl_factor {tag} team {t}: d {err_d:.3e} from its plain version")
+            check(float(torch.triu(L, 1).abs().max()) == 0.0 and bool((torch.diagonal(L, dim1=1, dim2=2) == 1).all()),
+                  f"ldl_factor {tag} team {t}: L is not unit-lower with zeros above the diagonal")
+        (L, d), rule, ms_by, resident, teams = _ldl_teams_run(
+            chol, "factor", N, 0, item, lambda **kw: chol.ldl_batched(K, **kw), factor_check, (K,), lambda o: o,
+            B, dtype, main, tag)
+        err_f = float((L - Lp).abs().max())
+        err_d = float(((d - dp) / dp).abs().max())
+        recon = float((L @ (d[:, :, None] * L.transpose(1, 2)) - K).abs().max() / K.abs().max())
+        check(recon <= TOL_LDL[dtype], f"ldl_factor {tag} does not reconstruct K")
+        print(f"[kernels] ldl_factor {tag}: max|dL| = {err_f:.3e} (largest entry {lscale:.3e}), max|dd/d| = {err_d:.3e}"
+              f" (tol {TOL_LDL[dtype]:.0e}, relative); |L D L' - K| / |K| = {recon:.3e}; teams {teams} (rule"
+              f" {_launch_tag(rule)}), tail batches exact, the same bits at every team; plain {plain_f:.1f} ms"
+              + (f"; device ms by team (CUDA graph) {ms_by}, instances per SM {resident}" if main else ""))
+        if main:
+            lib_ms = time_ms(lambda: torch.linalg.lu_factor(K), reps=2)
+            # K is symmetric: its lower triangle is all the function needs; L (with its zeroed upper
+            # triangle) and d are written in full
+            b_ms, b_by = bound(B * item * (N * (N + 1) // 2 + N * N + N), B * N**3 / 3)
+            recs[0] = dict(name=f"ldl_factor_N{N}", route="cuda",
+                           source="diffopt_tpu_torch/csrc/ldl.cu", replaces="diffopt_tpu/ops/pallas/chol.py:171",
+                           max_abs_err=err_f, ms=ms_by[str(rule[0])], plain_ms=plain_f, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=lib_ms, batch=B, team_warps=rule[0], per_block=rule[1], ms_by_team=ms_by,
+                           instances_per_sm=resident)
+    else:
+        L, d = Lp, dp
+    (xp, plain_s) = wall_ms(lambda: chol.ldl_solve_batched_plain(L, d, rhs))
+    xscale = float(xp.abs().max())
+
+    def solve_check(x, t):
+        err_s = float((x - xp).abs().max())
+        check(bool(torch.isfinite(x).all()), f"ldl_solve {tag} k={k} team {t}: non-finite output")
+        check(err_s <= TOL_SOLVE[dtype] * xscale, f"ldl_solve {tag} k={k} team {t}: {err_s:.3e} from its plain version")
+    x, rule, ms_by, resident, teams = _ldl_teams_run(
+        chol, "solve", N, k, item, lambda **kw: chol.ldl_solve_batched(L, d, rhs, **kw), solve_check, (L, d, rhs),
+        lambda o: (o,), B, dtype, main, tag + f" k={k}")
+    err_s = float((x - xp).abs().max())
+    # residual of the factored system (L D L') x = rhs, in f64
+    Ld, xd = L.double(), x.double() if k > 1 else x.double()[..., None]
+    resid = Ld @ (d.double()[..., None] * (Ld.transpose(1, 2) @ xd)) - (rhs.double() if k > 1 else rhs.double()[..., None])
+    rel_res = float(resid.abs().max() / rhs.abs().max())
+    del Ld, xd, resid
+    print(f"[kernels] ldl_solve {tag} k={k}: max|dx| = {err_s:.3e} (largest entry {xscale:.3e}, tol"
+          f" {TOL_SOLVE[dtype]:.0e} of it); |L D L' x - rhs| / |rhs| = {rel_res:.3e}; teams {teams} (rule"
+          f" {_launch_tag(rule)}), tail batches exact, the same bits at every team; plain {plain_s:.1f} ms"
+          + (f"; device ms by team (CUDA graph) {ms_by}, instances per SM {resident}" if main else ""))
+    if main:
+        lu, piv = torch.linalg.lu_factor(K)
+        lib_ms = time_ms(lambda: torch.linalg.lu_solve(lu, piv, rhs if k > 1 else rhs[..., None]), reps=2)
+        del lu, piv
+        # the strict lower triangle of L, d and rhs read, x written
+        b_ms, b_by = bound(B * item * (N * (N - 1) // 2 + N + 2 * N * k), B * 2 * N * N * k)
+        recs[1] = dict(name=f"ldl_solve_N{N}_k{k}", route="cuda",
+                       source="diffopt_tpu_torch/csrc/ldl.cu", replaces="diffopt_tpu/ops/pallas/chol.py:188",
+                       max_abs_err=err_s, ms=ms_by[str(rule[0])], plain_ms=plain_s, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms, batch=B, team_warps=rule[0], per_block=rule[1], ms_by_team=ms_by,
+                       instances_per_sm=resident)
+    return recs
+
+
+def ldl_teams_records(recs):
+    """The ``ldl_teams`` line's records of kernels-line records: ms and instances per SM by team."""
+    return {r["name"]: dict(rule=_launch_tag((r["team_warps"], r["per_block"])), batch=r["batch"],
+                            ms_by_team=r["ms_by_team"], instances_per_sm=r["instances_per_sm"], bound_ms=r["bound_ms"],
+                            plain_ms=r["plain_ms"], library_ms=r["library_ms"]) for r in recs}
+
+
+QP100 = (100, 48, 24)  # the [qp100] path: N = 172
+
+
+def phase_kernels_ldl(batch, gen):
+    """K2 / K3 beside the main path's N = 112 (held in phase_kernels): [qp100]'s N = 172 at its batch in f32
+    (eight warps in registers) and N = 169, the end of the f64 envelope, in f64 (the packed shared-memory
+    route), and a small N for each team the rule picks (factor: 24 one warp, 64 two warps, 100 two warps
+    in f32 and eight in f64; solve: one warp at 24 and 64, four at 100), each at every team that takes it,
+    with k = 1 and, at 172, k = 3; teams that do not take a shape refused.
+    Inputs from a generator of this phase's own. Returns the kernels-line entries for N = 172 and the
+    ``ldl_teams`` record."""
+    from diffopt_tpu_torch.ops.cuda import chol
+
+    own = torch.Generator(device=DEVICE)
+    own.manual_seed(gen.initial_seed() + 11)
+    N100 = sum(QP100)
+    entries, teams = {}, {}
+    for N, dtype, B in ((N100, torch.float32, min(batch, 8192)), (169, torch.float64, min(batch, 1024)),
+                        (24, torch.float32, min(batch, 4096)), (24, torch.float64, min(batch, 1024)),
+                        (64, torch.float32, min(batch, 4096)), (64, torch.float64, min(batch, 1024)),
+                        (100, torch.float32, min(batch, 4096)), (100, torch.float64, min(batch, 1024))):
+        K = _quasi_definite(B, N, dtype, own)
+        rhs = torch.randn(B, N, dtype=dtype, device=DEVICE, generator=own)
+        main = dtype == torch.float32
+        recs = _hold_ldl(chol, K, rhs, main)
+        if N == N100 and main:
+            entries.update({r["name"]: r for r in recs})
+            rhs3 = torch.randn(min(B, 512), N, 3, dtype=dtype, device=DEVICE, generator=own)
+            _hold_ldl(chol, K[:512].contiguous(), rhs3, False, solve_only=True)
+        if main:
+            teams.update(ldl_teams_records(recs))
+        del K, rhs
+        torch.cuda.empty_cache()
+    # teams that do not take a shape are refused, never replaced by another
+    K = _quasi_definite(8, N_KKT, torch.float32, own)
+    Kb = _quasi_definite(8, N100, torch.float32, own)
+    for what, call in (("a one-warp factor at N = 112", lambda: chol.ldl_batched(K, team=1)),
+                       ("a four-warp factor team", lambda: chol.ldl_batched(K, team=4)),
+                       ("a two-warp factor past 128 rows", lambda: chol.ldl_batched(Kb, team=2)),
+                       ("a three-warp solve team for one right-hand side",
+                        lambda: chol.ldl_solve_batched(K, K[:, 0], K[:, :, 0], team=3)),
+                       ("a one-warp solve for 3 right-hand sides",
+                        lambda: chol.ldl_solve_batched(K, K[:, 0], K[:, :, :3], team=1))):
+        try:
+            call()
+        except ValueError:
+            continue
+        check(False, f"ldl: {what} was not refused")
+    print("[kernels] ldl: teams that do not take a shape are refused (a one-warp factor at N = 112, a four-warp factor"
+          " team, a two-warp factor past 128 rows, three warps for one right-hand side, one warp for three)")
+    return entries, teams
 
 
 def wall_ms(fn):
@@ -511,18 +624,14 @@ def _launch_tag(launch):
     return f"{launch[0]}x{launch[1]}"
 
 
-def _raw_tail(chol, op, args, out, B, n, k, team):
-    """Launch through the library itself on the first B instances while the output buffer holds more:
-    what a kernel writes past B shows as a changed entry there."""
-    lib = chol._chol_lib()
-    sfx = "f32" if out.dtype == torch.float32 else "f64"
-    stream = torch.cuda.current_stream().cuda_stream
-    if op == "factor":
-        code = getattr(lib, f"chol_factor_{sfx}")(args[0].data_ptr(), out.data_ptr(), B, n, team, stream)
-    else:
-        code = getattr(lib, f"chol_solve_{sfx}")(args[0].data_ptr(), args[1].data_ptr(), out.data_ptr(), B, n, k,
-                                                 team, stream)
-    check(code == 0, f"chol {op} n={n} k={k} team {team}: CUDA error {code} on a tail batch")
+def _raw_tail(lib, pair, op, ins, outs, B, n, k, team):
+    """Launch K2-K5 (``pair`` 'ldl' or 'chol') through the library itself on the first B instances while
+    the output buffers hold more: what a kernel writes past B shows as a changed entry there."""
+    sfx = "f32" if outs[0].dtype == torch.float32 else "f64"
+    sizes = (B, n) if op == "factor" else (B, n, k)
+    code = getattr(lib, f"{pair}_{op}_{sfx}")(*(t.data_ptr() for t in (*ins, *outs)), *sizes, team,
+                                             torch.cuda.current_stream().cuda_stream)
+    check(code == 0, f"{pair} {op} n={n} k={k} team {team}: CUDA error {code} on a tail batch")
     torch.cuda.synchronize()
 
 
@@ -565,7 +674,7 @@ def _hold_chol(chol, op, H, rhs, main):
         # a batch that is not a multiple of the instances per block: the same instances, nothing past them
         Bt = B - 3 if B > 3 else B
         buf = torch.full((B,) + tuple(out.shape[1:]), 7.0, dtype=dtype, device=DEVICE)
-        _raw_tail(chol, op, args, buf, Bt, n, k, t)
+        _raw_tail(chol._chol_lib(), "chol", op, args, (buf,), Bt, n, k, t)
         check(torch.equal(buf[:Bt], out[:Bt]) and bool((buf[Bt:] == 7.0).all()),
               f"chol {op} {tag} team {t}: a tail batch of {Bt} differs or writes past its end")
         if main:
@@ -775,6 +884,8 @@ def phase_main(batch, gen):
     print(f"[main] launches over {steps} steps: {launches} (per step {per_step})")
     check(per_step == {"pdip_fused": 1, "ldl_factor": 2, "ldl_solve": 6, "chol_factor": 0, "chol_solve": 0,
                        "conic_pdip": 0, "ns_pdip": 0}, f"unexpected launch counts {per_step}")
+    check(ldl_shape_launches() == {f"ldl_factor_N{N_KKT}": 2 * steps, f"ldl_solve_N{N_KKT}_k1": 6 * steps},
+          f"[main]: K2 / K3 launched at {ldl_shape_launches()}")
 
     grads = [t.grad for t in qp.tensors()]
     check(all(g is not None and g.shape == t.shape for g, t in zip(grads, qp.tensors())), "missing gradient")
@@ -846,14 +957,24 @@ def reset_counts():
     }
     for w in wrappers.values():
         w.launches = 0
-    chol.cholesky_batched.launches_by_shape.clear()
-    chol.cholesky_solve_batched.launches_by_shape.clear()
+    for w in (chol.cholesky_batched, chol.cholesky_solve_batched, chol.ldl_batched, chol.ldl_solve_batched):
+        w.launches_by_shape.clear()
     qpsolver.solve_batched.host_syncs = 0
     conic_ipm.solve_batched.host_syncs = 0
     conic_nsipm.solve_batched.host_syncs = 0
     conic.solve_batched.host_syncs = 0
     kkt._auto_solve.host_syncs = 0
     return wrappers
+
+
+def ldl_shape_launches():
+    """K2's and K3's launches since the counters were set to 0, by shape, under the names of their
+    ``kernels`` entries past the main path's N."""
+    from diffopt_tpu_torch.ops.cuda import chol
+
+    out = {f"ldl_factor_N{n}": c for (n, _), c in chol.ldl_batched.launches_by_shape.items()}
+    out.update({f"ldl_solve_N{n}_k{k}": c for (n, k), c in chol.ldl_solve_batched.launches_by_shape.items()})
+    return out
 
 
 def chol_shape_launches():
@@ -1108,7 +1229,7 @@ def phase_qp100(batch, gen):
     from diffopt_tpu_torch.utils.testing import make_batch
 
     B = min(batch, 8192)
-    n, m, p = 100, 48, 24
+    n, m, p = QP100
     qp = make_batch(B, n, m, p, torch.float32, DEVICE, gen).map(lambda t: t.requires_grad_())
 
     def step():
@@ -1128,8 +1249,11 @@ def phase_qp100(batch, gen):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {k: w.launches / (STEPS + 1) for k, w in wrappers.items()}
+    ldl_launches = ldl_shape_launches()
     check(launches == {"pdip_fused": 1, "ldl_factor": 2, "ldl_solve": 6, "chol_factor": 0, "chol_solve": 0,
                        "conic_pdip": 0, "ns_pdip": 0}, f"qp100: unexpected launches per step {launches}")
+    check(ldl_launches == {f"ldl_factor_N{n + m + p}": 2 * (STEPS + 1), f"ldl_solve_N{n + m + p}_k1": 6 * (STEPS + 1)},
+          f"qp100: K2 / K3 launched at {ldl_launches}")
     conv = float(info.converged.float().mean())
     med = sorted(times)[len(times) // 2]
     print(f"[qp100] B={B} n={n} m={m} p={p} (N={n + m + p}) f32 solve + VJP: {B / med:.1f} solves+VJPs per second (median step"
@@ -1139,7 +1263,7 @@ def phase_qp100(batch, gen):
     qs = dtt.QuadProgram(*(t.detach()[:sub].clone().requires_grad_() for t in qp.tensors()))
     (dtt.solve_qp_batched(qs, max_iters=25, method="lu").z ** 2).sum().backward()
     grad_diff_share([t.grad[:sub] for t in qp.tensors()], [t.grad for t in qs.tensors()], "the LU route", "qp100")
-    return {"solves_vjps_per_s": B / med, "step_ms": med * 1e3, "batch": B}
+    return {"solves_vjps_per_s": B / med, "step_ms": med * 1e3, "batch": B, "ldl_launches_by_shape": ldl_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2082,6 +2206,9 @@ def main(argv=None):
     phase_build()
     entries = phase_kernels(args.batch, gen)
     k1_teams = {"headline": entries["pdip_fused"].pop("k1_headline"), **phase_k1_teams(args.batch, gen)}
+    ldl_entries, ldl_teams = phase_kernels_ldl(args.batch, gen)
+    ldl_teams = {**entries.pop("ldl_teams_main"), **ldl_teams}
+    entries.update(ldl_entries)
     entries.update(phase_kernels_chol(args.batch, gen))
     entries.update(phase_kernels_conic(args.batch, gen))
     entries.update(phase_kernels_ns(args.batch, gen))
@@ -2096,9 +2223,9 @@ def main(argv=None):
     phase_conic_routes(gen)
     exp_launches, exp = phase_exp(args.batch)
     phase_ns_routes(gen)
-    # each kernel's count is read from the run of its own path: K1-K3 the QP main path's, K6 the conic
-    # path's, K7 the exp path's
-    own = {"conic_pdip": conic_launches, "ns_pdip": exp_launches}
+    # each kernel's count is read from the run of its own path: K1-K3 the QP main path's (K2 / K3 at N = 172:
+    # the [qp100] path's), K6 the conic path's, K7 the exp path's
+    own = {"conic_pdip": conic_launches, "ns_pdip": exp_launches, **{nm: qp100["ldl_launches_by_shape"] for nm in ldl_entries}}
     # K4 / K5: one entry for each shape a path launched them at, with the count of the paths that did (the
     # staged QP path: n = 64 and 16; the gram route: n = 34 on [conic], 17 on [exp], 18 / 44 / 144 on
     # [sdp]; the condensed route on the [sdp] side 16: n = 3), and its launches per step on each; the
@@ -2144,6 +2271,7 @@ def main(argv=None):
     print(json.dumps({"k6_teams": {**entries["conic_pdip"].pop("k6_teams"), "card": card}}))
     print(json.dumps({"k1_teams": {**k1_teams, "card": card}}))
     print(json.dumps({"chol_teams": {**chol_teams, "card": card}}))
+    print(json.dumps({"ldl_teams": {**ldl_teams, "card": card}}))
     # K1's, K4's, K5's and K6's launch rule and their time at every team size
     team_keys = ("team_warps", "ms_by_team", "per_block", "launches_per_step")
     print(json.dumps({"kernels": [{k: e[k] for k in keys + team_keys if k in keys or k in e} for e in entries.values()]}))

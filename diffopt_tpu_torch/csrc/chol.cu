@@ -32,19 +32,15 @@
 // (factor_lower). The first pivot that is not > 0 is found by warp ballots
 // over the pivots.
 //
-// Solve. One warp per instance at k = 1, four warps packed into a block
-// (blockDim = (32, 1, per_block)). For k > 1 one copy of L serves all the
-// right-hand sides: a team of two warps (blockDim = (32, 2)) of which each
-// holds up to four right-hand sides in registers at once. L's lower triangle
-// reaches shared memory packed (row i at i (i + 1) / 2: a column walk of 32
-// consecutive rows touches 32 distinct banks) by asynchronous copies
-// (cp.async) in eight groups of columns, so the forward sweep, which needs
-// columns <= j only, starts on the first group while the rest arrive. Both
-// sweeps read L through SPtr (LDS, 32-bit addresses); the right-hand sides
-// stay in registers from the load to the store. Every launch does the parent
-// kernel's operations in its order (the forward sweep subtracts column by
-// column, the backward row by row of L, and each pivot is multiplied by
-// 1 / L[j][j]).
+// Solve (csrc/tri_solve.cuh, shared with the LDL' solve K3). One warp per
+// instance at k = 1, four warps packed into a block. For k > 1 one copy of L
+// serves all the right-hand sides: a team of two warps of which each holds up
+// to four right-hand sides in registers at once. L's lower triangle reaches
+// shared memory packed (row i at i (i + 1) / 2) by asynchronous copies
+// (cp.async) in eight groups of columns, overlapped with the forward sweep.
+// Every launch does the same operations in the same order (the forward sweep
+// subtracts column by column, the backward row by row of L, and each pivot is
+// multiplied by 1 / L[j][j]).
 //
 // A matrix that is not positive definite never traps: from the first pivot j
 // that is not > 0 on, every column k >= j of L is NaN (rows >= k), which is
@@ -56,12 +52,9 @@
 // packed triangle, n (n + 1) / 2 words, in 227 KB.
 #include "dense.cuh"
 #include "prof.cuh"
+#include "tri_solve.cuh"
 
 namespace dk {
-
-// counters of the phase probes (prof.cuh, tools/chol_phase_cycles.py): cycles per instance of its copy
-// in, its factorisation or forward sweep, its backward sweep and its write out, and the instances counted
-enum CholProf { kCholProfCopy, kCholProfWork, kCholProfBack, kCholProfOut, kCholProfInstances = 15 };
 
 template <typename T>
 __device__ inline T quiet_nan();
@@ -69,8 +62,6 @@ template <>
 __device__ inline float quiet_nan<float>() { return __int_as_float(0x7fffffff); }
 template <>
 __device__ inline double quiet_nan<double>() { return __longlong_as_double(0x7ff8000000000000LL); }
-
-__host__ __device__ constexpr int tri(int i) { return i * (i + 1) / 2; }
 
 // ---- the launch rule (mirrored by ops/cuda/chol.py) ----------------------------
 //
@@ -80,16 +71,13 @@ __host__ __device__ constexpr int tri(int i) { return i * (i + 1) / 2; }
 // fit), the counts that were timed fastest, or within a few percent of it, on
 // an H100 (PERF.md).
 
-constexpr int kSolveMaxRows = 256;  // 32 lanes x 8 register rows
-constexpr int kSolveMaxCols = 4;    // right-hand sides one warp holds at once
-
 // shared-memory words of one instance: the factor's pivots and the team's
 // double-buffered pivot column (registers route), or the matrix and pivots
 // (shared-memory route past 128); the solve's packed triangle
 __host__ __device__ inline int chol_factor_words(int n, int tw) {
   return n <= tile_max_n(8) ? n + colbuf_words(tw) : n * odd_stride(n) + n;
 }
-__host__ __device__ inline int chol_solve_words(int n) { return tri(n); }
+__host__ __device__ inline int chol_solve_words(int n) { return solve_words<CholDiag>(n); }
 
 // instances per block of a launch with teams of tw warps
 inline int chol_per_block(int n, int k, int itemsize, int tw) {
@@ -176,10 +164,10 @@ chol_factor_team_kernel(const T* __restrict__ H, T* __restrict__ Lout, int B, in
       const int i = ty + kY * a, k = tx + kX * b;
       t[a][b] = (tile_live<kY, kX>(a, b) && i < n && k <= i) ? Hg[size_t(i) * n + k] : T(0);
     }
-  DK_PROF_AT(kCholProfCopy, Team<TW>::sync(), threadIdx.x == 0);
+  DK_PROF_AT(kProfCopy, Team<TW>::sync(), threadIdx.x == 0);
   factor_grid<T, TW, RY, RX>(t, n, diag, colbuf);
   const int jbad = first_bad_pivot<T>(diag, n, lane);
-  DK_PROF_AT(kCholProfWork, Team<TW>::sync(), threadIdx.x == 0);
+  DK_PROF_AT(kProfWork, Team<TW>::sync(), threadIdx.x == 0);
   const T nan = quiet_nan<T>();
   // column k of t carries L[i][k] * pivot k of the LDL' form: times
   // rsqrt(pivot k) it is the Cholesky factor, diagonal included
@@ -200,8 +188,8 @@ chol_factor_team_kernel(const T* __restrict__ H, T* __restrict__ Lout, int B, in
         Lg[size_t(i) * n + k] = v;
       }
     }
-  DK_PROF_AT(kCholProfOut, Team<TW>::sync(), threadIdx.x == 0);
-  if (threadIdx.x == 0) DK_PROF_ADD(kCholProfInstances, 1);
+  DK_PROF_AT(kProfOut, Team<TW>::sync(), threadIdx.x == 0);
+  if (threadIdx.x == 0) DK_PROF_ADD(kProfInstances, 1);
 }
 
 // Past 128 rows: one block of eight warps per instance, the matrix in shared memory.
@@ -219,10 +207,10 @@ chol_factor_smem_kernel(const T* __restrict__ H, T* __restrict__ Lout, int /*B: 
   for (int i = warp; i < n; i += kWarps)
     for (int k = lane; k <= i; k += 32) M[i * ld + k] = Hg[size_t(i) * n + k];
   __syncthreads();
-  DK_PROF(kCholProfCopy);
+  DK_PROF(kProfCopy);
   factor_lower<T>(reinterpret_cast<T*>(dk_smem), ld, n, dvec);
   const int jbad = first_bad_pivot<T>(dvec, n, lane);
-  DK_PROF(kCholProfWork);
+  DK_PROF(kProfWork);
   const T nan = quiet_nan<T>();
   for (int i = warp; i < n; i += kWarps)
     for (int k = lane; k < n; k += 32) {
@@ -230,163 +218,8 @@ chol_factor_smem_kernel(const T* __restrict__ H, T* __restrict__ Lout, int /*B: 
       if (k <= i) v = k < jbad ? M[i * ld + k] * rsqrt(dvec[k]) : nan;
       Lg[size_t(i) * n + k] = v;
     }
-  DK_PROF(kCholProfOut);
-  if (tid == 0) DK_PROF_ADD(kCholProfInstances, 1);
-}
-
-// ---- solve -------------------------------------------------------------------
-
-// asynchronous copies of one word from device to shared memory, in groups
-template <int kBytes>
-__device__ __forceinline__ void cp_async(unsigned dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src), "n"(kBytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-// wait until at most `pending` of the calling thread's groups are in flight
-// (a constant wherever the loop around the call is unrolled)
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-#define DK_CP_WAIT(N) \
-  case N: asm volatile("cp.async.wait_group " #N ";\n" ::: "memory"); break;
-    DK_CP_WAIT(0) DK_CP_WAIT(1) DK_CP_WAIT(2) DK_CP_WAIT(3) DK_CP_WAIT(4) DK_CP_WAIT(5) DK_CP_WAIT(6)
-    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory");
-#undef DK_CP_WAIT
-  }
-}
-
-constexpr int kSolveChunks = 8;  // groups of columns L arrives in
-
-// The team's barrier in the solve: a warp, or the block when the team is more than one warp
-__device__ __forceinline__ void solve_sync() {
-  if (blockDim.y > 1) __syncthreads();
-  else __syncwarp();
-}
-
-// Solves L L' x = rhs for one instance on a team of blockDim.y warps; each
-// warp holds C right-hand sides at once (lane l: rows 32 r + l in x[c][r]),
-// rounds of C blockDim.y columns where k is larger. kRows register rows hold
-// n <= 32 kRows.
-template <typename T, int kRows, int C>
-__global__ void __launch_bounds__(256)
-chol_solve_kernel(const T* __restrict__ Lin, const T* __restrict__ rhs, T* __restrict__ out, int B, int n, int k) {
-  constexpr int kChunkCols = 4 * kRows;  // kSolveChunks chunks of columns cover 32 kRows
-  static_assert(kChunkCols * kSolveChunks == 32 * kRows && 32 % kChunkCols == 0, "chunks tile the register rows");
-  const int lane = threadIdx.x, warp = threadIdx.y, warps = blockDim.y;
-  const int inst = blockIdx.x * blockDim.z + threadIdx.z;
-  if (inst >= B) return;  // a whole warp: blocks of several instances hold one-warp teams only
-  const SPtr<T> L{int(threadIdx.z) * chol_solve_words(n)};
-  const T* Lg = Lin + size_t(inst) * n * n;
-  const T* rg = rhs + size_t(inst) * n * k;
-  T* og = out + size_t(inst) * n * k;
-  DK_PROF_START();
-
-  // L's lower triangle, packed, by columns [kChunkCols c, kChunkCols (c + 1)) of rows >= that:
-  // 32 / kChunkCols rows per warp instruction, the team's warps taking rows in turn
-  const unsigned sL = unsigned(__cvta_generic_to_shared(dk_smem)) + unsigned(L.off) * sizeof(T);
-  {
-    const int dr = lane / kChunkCols, col_in = lane % kChunkCols, rstep = (32 / kChunkCols) * warps;
-#pragma unroll
-    for (int c = 0; c < kSolveChunks; ++c) {
-      const int col = kChunkCols * c + col_in;
-      for (int i = kChunkCols * c + dr + (32 / kChunkCols) * warp; i < n; i += rstep)
-        if (col <= i) cp_async<sizeof(T)>(sL + unsigned(tri(i) + col) * sizeof(T), Lg + size_t(i) * n + col);
-      cp_async_commit();
-    }
-  }
-  // 1 / L[i][i] in the lane that owns row i, and tri(i)
-  T inv[kRows];
-  int roff[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = 32 * r + lane;
-    inv[r] = i < n ? T(1) / Lg[size_t(i) * n + i] : T(0);
-    roff[r] = tri(i);
-  }
-  DK_PROF_AT(kCholProfCopy, solve_sync(), lane == 0 && warp == 0);
-
-  const int rounds = (k + C * warps - 1) / (C * warps);
-  for (int round = 0; round < rounds; ++round) {
-    const int c0 = (round * warps + warp) * C;  // this warp's first column
-    T x[C][kRows];
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = 32 * r + lane;
-        x[c][r] = (i < n && c0 + c < k) ? rg[size_t(i) * k + c0 + c] : T(0);
-      }
-
-    // forward: x <- L^-1 x by columns, chunk by chunk as they arrive (waited for in the first round only)
-#pragma unroll
-    for (int rj = 0; rj < kRows; ++rj) {
-#pragma unroll
-      for (int q = 0; q < 32 / kChunkCols; ++q) {
-        const int chunk = rj * (32 / kChunkCols) + q, j0 = kChunkCols * chunk;
-        if (j0 >= n) break;
-        if (round == 0) {
-          cp_async_wait(kSolveChunks - 1 - chunk);
-          solve_sync();
-        }
-        const int jend = min(kChunkCols, n - j0);
-#pragma unroll 4
-        for (int jj = 0; jj < jend; ++jj) {
-          const int jl = q * kChunkCols + jj, j = j0 + jj;
-          T y[C];
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            if (lane == jl) x[c][rj] *= inv[rj];
-            y[c] = __shfl_sync(kFullMask, x[c][rj], jl);
-          }
-#pragma unroll
-          for (int r = rj; r < kRows; ++r) {
-            const int i = 32 * r + lane;
-            if (i > j && i < n) {
-              const T l = L[roff[r] + j];
-#pragma unroll
-              for (int c = 0; c < C; ++c) x[c][r] -= l * y[c];
-            }
-          }
-        }
-      }
-    }
-    DK_PROF_AT(kCholProfWork, solve_sync(), lane == 0 && warp == 0);
-
-    // backward: x <- L'^-1 x, reading row j of L
-#pragma unroll
-    for (int rj = kRows - 1; rj >= 0; --rj) {
-      const int jend = min(32, n - 32 * rj);
-#pragma unroll 4
-      for (int jl = jend - 1; jl >= 0; --jl) {
-        const int j = 32 * rj + jl, rowj = tri(j);
-        T y[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (lane == jl) x[c][rj] *= inv[rj];
-          y[c] = __shfl_sync(kFullMask, x[c][rj], jl);
-        }
-#pragma unroll
-        for (int r = 0; r <= rj; ++r) {
-          const int i = 32 * r + lane;
-          if (i < j) {
-            const T l = L[rowj + i];
-#pragma unroll
-            for (int c = 0; c < C; ++c) x[c][r] -= l * y[c];
-          }
-        }
-      }
-    }
-    DK_PROF_AT(kCholProfBack, solve_sync(), lane == 0 && warp == 0);
-
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = 32 * r + lane;
-        if (i < n && c0 + c < k) og[size_t(i) * k + c0 + c] = x[c][r];
-      }
-    DK_PROF_AT(kCholProfOut, solve_sync(), lane == 0 && warp == 0);
-  }
-  if (lane == 0 && warp == 0) DK_PROF_ADD(kCholProfInstances, 1);
+  DK_PROF(kProfOut);
+  if (tid == 0) DK_PROF_ADD(kProfInstances, 1);
 }
 
 // ---- launchers -----------------------------------------------------------------
@@ -409,29 +242,6 @@ template <typename T, class F>
 int with_factor_kernel(int n, int tw, int per, F&& f) {
   if (n > tile_max_n(8)) return f(chol_factor_smem_kernel<T>, dim3(kThreads));
   return with_team(tw, [&](auto tc) { return with_cover<T, decltype(tc)::value>(n, per, f); });
-}
-
-// columns one warp holds at once for k right-hand sides on tw warps: 1, 2 or 4
-inline int solve_cols(int k, int tw) {
-  const int c = (k + tw - 1) / tw;
-  return c <= 1 ? 1 : (c <= 2 ? 2 : kSolveMaxCols);
-}
-
-template <typename T, class F>
-int with_solve_kernel(int n, int k, int tw, int per, F&& f) {
-  const dim3 block(32, tw, per);
-  auto by_cols = [&](auto rows) {
-    constexpr int R = decltype(rows)::value;
-    switch (solve_cols(k, tw)) {
-      case 1: return f(chol_solve_kernel<T, R, 1>, block);
-      case 2: return f(chol_solve_kernel<T, R, 2>, block);
-      default: return f(chol_solve_kernel<T, R, kSolveMaxCols>, block);
-    }
-  };
-  if (n <= 32) return by_cols(std::integral_constant<int, 1>{});
-  if (n <= 64) return by_cols(std::integral_constant<int, 2>{});
-  if (n <= 128) return by_cols(std::integral_constant<int, 4>{});
-  return by_cols(std::integral_constant<int, 8>{});
 }
 
 template <typename T>
@@ -457,11 +267,11 @@ int launch_chol_solve(const void* L, const void* rhs, void* out, int B, int n, i
   if (B <= 0 || k <= 0 || !chol_team_takes(n, k, item, team)) return int(cudaErrorInvalidValue);  // refused
   const int per = chol_per_block(n, k, item, team);
   const size_t smem = chol_smem_bytes_of(n, k, item, team);
-  return with_solve_kernel<T>(n, k, team, per, [&](auto kernel, dim3 block) {
+  return with_solve_kernel<T, CholDiag>(n, k, team, per, [&](auto kernel, dim3 block) {
     cudaError_t e = smem_attributes(kernel, smem);
     if (e != cudaSuccess) return int(e);
     kernel<<<(B + per - 1) / per, block, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(L), static_cast<const T*>(rhs), static_cast<T*>(out), B, n, k);
+        static_cast<const T*>(L), nullptr, static_cast<const T*>(rhs), static_cast<T*>(out), B, n, k);
     return int(cudaGetLastError());
   });
 }
@@ -482,7 +292,7 @@ int chol_blocks_per_sm_of(int n, int k, int team) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block.x * block.y * block.z, smem);
     return e == cudaSuccess ? blocks * per : -int(e);
   };
-  return k == 0 ? with_factor_kernel<T>(n, team, per, occupancy) : with_solve_kernel<T>(n, k, team, per, occupancy);
+  return k == 0 ? with_factor_kernel<T>(n, team, per, occupancy) : with_solve_kernel<T, CholDiag>(n, k, team, per, occupancy);
 }
 
 }  // namespace dk

@@ -1,26 +1,26 @@
 // Dense building blocks shared by the kernels of this package: Cholesky / LDL'
 // factorisations and triangular substitutions on a matrix held in shared
 // memory, plus warp reductions. One thread block works on one problem
-// instance: kThreads threads in K2, K3, K7 and K4 past 128 rows; a team of 1,
-// 2 or 8 warps in K1, K4 and K6 (Team below), whose factorisation runs on the
-// team's own thread grid (K4 packs several one-warp teams into a block).
+// instance: kThreads threads in K7 and in K2 / K4 past their register tiles; a team of 1,
+// 2 or 8 warps in K1, K2, K4 and K6 (Team below), whose factorisation runs on
+// the team's own thread grid (K2 and K4 pack two one-warp teams into a block).
 //
 // Two scopes: a factorisation has O(n^2) independent updates per step and is
-// run by the whole block (one block barrier per step), with the matrix in
-// registers where it fits (n <= 128) and in shared memory otherwise; a
-// substitution on ONE
-// right-hand side has O(n) independent updates per step, so it is run by one
-// warp, in registers, and several right-hand sides go to several warps side by
-// side.
+// run by the whole team (one barrier per step), with the matrix in registers
+// where it fits and in shared memory otherwise; a substitution on
+// ONE right-hand side has O(n) independent updates per step, so it is run by
+// one warp, in registers, and several right-hand sides go to several warps
+// side by side (or up to four to a warp: csrc/tri_solve.cuh).
 //
-// Matrices in shared memory use an odd row stride (odd_stride), so that a warp
-// walking down a column and a warp walking along a row both touch 32 distinct
-// banks.
+// Matrices in shared memory use an odd row stride (odd_stride) or are packed
+// lower triangles (PackedRows), so that a warp walking down a column and a
+// warp walking along a row both touch 32 distinct banks.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cstddef>
 #include <type_traits>
 
 namespace dk {
@@ -54,6 +54,19 @@ struct SPtr {
   __device__ SPtr operator+(int k) const { return SPtr{off + k}; }
 };
 
+// Where row i of a matrix in memory starts, in words: rows ld words apart, or a
+// packed lower triangle, row i at tri(i) (kDiag = 1: with the diagonal) or at
+// tri(i) - i (kDiag = 0: the strict lower triangle). A walk down a column of a
+// packed triangle, 32 consecutive rows, touches 32 distinct banks.
+struct StridedRows {
+  int ld;
+  __host__ __device__ int operator()(int i) const { return i * ld; }
+};
+template <int kDiag>
+struct PackedRows {
+  __host__ __device__ int operator()(int i) const { return kDiag ? i * (i + 1) / 2 : i * (i - 1) / 2; }
+};
+
 // whether a pivot array was given (the substitutions' unit-diagonal case passes nullptr)
 template <typename T>
 __device__ inline bool given(const T* p) { return p != nullptr; }
@@ -84,10 +97,10 @@ __device__ inline T warp_min(T a) {
 }
 
 // Right-looking unpivoted LDL' factorisation M = L D L' of the n x n matrix M
-// (shared memory, row stride ld), in place, reading and writing the lower
-// triangle only. Called by every thread of the block; ends in __syncthreads.
-// This is the route for any n; up to n = 128 the register-tiled factor_tile
-// below is the fast one.
+// (shared memory, row i at M + off(i): StridedRows or PackedRows), in place,
+// reading and writing the lower triangle only. Called by every thread of the
+// block; ends in __syncthreads. This is the route for any n; where the
+// register tiles hold n, factor_grid below is the fast one.
 //
 // Step j subtracts M[i][j] M[k][j] / M[j][j] from every M[i][k], j < k <= i.
 // Column j itself is left as it is (unscaled), so a step reads only what
@@ -95,12 +108,12 @@ __device__ inline T warp_min(T a) {
 // and the strict lower triangle holds L[i][j] D[j]: the caller divides column
 // j by diag[j] where it reads L. A zero pivot gives NaN / inf entries (no
 // trap, no hang).
-template <typename T>
-__device__ void factor_lower(T* __restrict__ M, int ld, int n, T* __restrict__ diag) {
+template <typename T, typename Off>
+__device__ void factor_lower(T* __restrict__ M, Off off, int n, T* __restrict__ diag) {
   constexpr int kUnroll = 4;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = 0; j < n; ++j) {
-    const T piv = M[j * ld + j];
+    const T piv = M[off(j) + j];
     const T inv = T(1) / piv;
     if (tid == 0) diag[j] = piv;
     // one warp per row, lanes along it, kUnroll rows at a time so that their
@@ -111,26 +124,31 @@ __device__ void factor_lower(T* __restrict__ M, int ld, int n, T* __restrict__ d
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int i = i0 + u * kWarps;
-        ci[u] = i < n ? M[i * ld + j] * inv : T(0);
+        ci[u] = i < n ? M[off(i) + j] * inv : T(0);
       }
       const int ilast = min(n - 1, i0 + (kUnroll - 1) * kWarps);
       for (int k = j + 1 + lane; k <= ilast; k += 32) {
-        const T ck = M[k * ld + j];
+        const T ck = M[off(k) + j];
         T v[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int i = i0 + u * kWarps;
-          v[u] = (i < n && k <= i) ? M[i * ld + k] : T(0);
+          v[u] = (i < n && k <= i) ? M[off(i) + k] : T(0);
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const int i = i0 + u * kWarps;
-          if (i < n && k <= i) M[i * ld + k] = v[u] - ci[u] * ck;
+          if (i < n && k <= i) M[off(i) + k] = v[u] - ci[u] * ck;
         }
       }
     }
     __syncthreads();
   }
+}
+
+template <typename T>
+__device__ void factor_lower(T* __restrict__ M, int ld, int n, T* __restrict__ diag) {
+  factor_lower(M, StridedRows{ld}, n, diag);
 }
 
 // ---- teams -------------------------------------------------------------------
@@ -184,7 +202,7 @@ cudaError_t smem_attributes(K* kernel, size_t smem) {
 // factor_lower spends ten instructions on addresses and predicates for every
 // multiply-add, and every operand comes from shared memory. Here the matrix
 // lives in REGISTERS for the whole factorisation: the team's threads form a
-// kY x kX grid (TileGrid below; 16 x 16 for the 256 threads of K2, K3 and K7),
+// kY x kX grid (TileGrid below; 16 x 16 for a team of eight warps),
 // thread (ty, tx) = (tid / kX, tid % kX) owns the entries (i, k) with
 // i = ty + kY a, k = tx + kX b (a cyclic map, so the trailing matrix stays
 // spread over all threads as it shrinks), a < RY, b < RX, kY RY = kX RX, of
@@ -208,7 +226,7 @@ template <> struct TileGrid<8> { static constexpr int kY = 16, kX = 16, kNumCove
 __host__ __device__ constexpr int tile_max_n(int tw) { return tw == 1 ? 40 : (tw == 8 ? 128 : 64); }
 __host__ __device__ constexpr int colbuf_words(int tw) { return 2 * tile_max_n(tw); }
 
-constexpr int kTileGrid = 16;  // the 256-thread grid of K2, K3 and K7
+constexpr int kTileGrid = 16;  // the 256-thread grid of K7
 static_assert(kTileGrid * kTileGrid == kThreads, "the tile map needs a 16 x 16 thread grid");
 constexpr int kMaxTileRows = 8;                                 // n <= 128
 constexpr int kColbufWords = 2 * kTileGrid * kMaxTileRows;      // double-buffered pivot column
@@ -233,10 +251,6 @@ __device__ inline bool dispatch_grid(int n, F&& f) {
   }
 }
 
-// The 256-thread form: kRows in {2, 4, 8} (n <= 128) for K2, K3 and K7.
-template <typename F>
-__device__ inline bool dispatch_tile(int n, F&& f) { return dispatch_grid<8>(n, f); }
-
 // Whether tile (a, b) of a kY x kX grid holds an entry on or below the diagonal
 template <int kY, int kX>
 __host__ __device__ constexpr bool tile_live(int a, int b) { return kY * a + kY - 1 >= kX * b; }
@@ -245,22 +259,23 @@ __host__ __device__ constexpr bool tile_live(int a, int b) { return kY * a + kY 
 // warps (entries outside n x n must be zero): on return diag[j] = pivot j and
 // column j of t holds L[i][j] * pivot j (LDL' with the column scaling left to
 // the caller, as in factor_lower; store_chol_grid turns it into a Cholesky
-// factor). colbuf: colbuf_words(TW) of shared memory; diag and colbuf are
-// plain pointers or SPtr. Called by every thread of the team; ends in the
-// team's barrier.
+// factor). colbuf: 2 max(tile_max_n(TW), kY RY) words of shared memory
+// (colbuf_words(TW) where the tiles hold at most tile_max_n(TW) rows); diag
+// and colbuf are plain pointers or SPtr. Called by every thread of the team;
+// ends in the team's barrier. The update of entry (i, k) at step j is the
+// same operation for every team and tile set, in the same order of j, so
+// every team gives the same bits.
 //
 // A rectangular tile set (kY RY > kX RX) holds rows below the square: rows n
 // and on of t are then eliminated by the same n column steps, so that a block
 // B stacked under the matrix, [M; B], leaves as B L'^-1 with column j times
 // pivot j (the forward substitution of B' against L, its products subtracted
-// in the same order of columns). colbuf then needs 2 max(tile_max_n(TW), kY RY)
-// words.
+// in the same order of columns).
 template <typename T, int TW, int RY, int RX, typename P>
 __device__ void factor_grid(T (&t)[RY][RX], int n, P diag, P colbuf) {
   constexpr int kY = TileGrid<TW>::kY, kX = TileGrid<TW>::kX;
   constexpr int kHalf = kY * RY > tile_max_n(TW) ? kY * RY : tile_max_n(TW);
-  static_assert(kY * RY >= kX * RX && kX * RX <= tile_max_n(TW),
-                "the tiles cover at most tile_max_n columns, and at least as many rows");
+  static_assert(kY * RY >= kX * RX, "the tiles cover at least as many rows as columns");
   const int tx = threadIdx.x % kX, ty = threadIdx.x / kX;
 #pragma unroll
   for (int bj = 0; bj < RX; ++bj) {
@@ -278,16 +293,18 @@ __device__ void factor_grid(T (&t)[RY][RX], int n, P diag, P colbuf) {
       const T piv = buf[j];
       const T inv = T(1) / piv;
       if (threadIdx.x == 0) diag[j] = piv;
+      // rows and columns at or above j enter as zeros; a tile wholly below (right of) column block bj
+      // needs no test
       T ci[RY], ck[RX];
 #pragma unroll
       for (int a = 0; a < RY; ++a) {
         const int i = ty + kY * a;
-        ci[a] = (a >= amin && i > j) ? buf[i] * inv : T(0);
+        ci[a] = (a >= amin && (kY * a >= kX * (bj + 1) || i > j)) ? buf[i] * inv : T(0);
       }
 #pragma unroll
       for (int b = 0; b < RX; ++b) {
         const int k = tx + kX * b;
-        ck[b] = (b >= bj && k > j) ? buf[k] : T(0);
+        ck[b] = (b > bj || (b == bj && k > j)) ? buf[k] : T(0);
       }
 #pragma unroll
       for (int a = 0; a < RY; ++a)
@@ -297,12 +314,6 @@ __device__ void factor_grid(T (&t)[RY][RX], int n, P diag, P colbuf) {
     }
   }
   Team<TW>::sync();
-}
-
-// The 256-thread form (16 x 16 grid, kRows x kRows tiles, b <= a kept) of K2, K3 and K7.
-template <typename T, int kRows>
-__device__ void factor_tile(T (&t)[kRows][kRows], int n, T* __restrict__ diag, T* __restrict__ colbuf) {
-  factor_grid<T, 8, kRows, kRows>(t, n, diag, colbuf);
 }
 
 // Writes the Cholesky factor out of factor_grid's result on a team of TW
@@ -332,65 +343,137 @@ __device__ void store_chol_grid(const T (&t)[RY][RX], int n, int rows, P M, int 
   Team<TW>::sync();
 }
 
-// The substitutions below work on one right-hand side x whose entries lie xs
-// words apart (a column of a row-major n x k block: xs = its row stride), and
-// are called by the 32 lanes of one warp; they end in __syncwarp. piv[j]
-// multiplies entry j when it is read as the pivot (nullptr: unit diagonal).
+// The substitutions below are called by the 32 lanes of one warp on C
+// right-hand sides held in registers (lane l holds entry r * 32 + l of
+// column c in x[c][r], kRows register rows: n <= 32 kRows). Row i of L starts
+// at word off(i) of L (StridedRows or PackedRows, above). How the pivot entry j is treated when it is read:
+//   a pointer or SPtr piv  -- every lane multiplies the shuffled x[j] by
+//                             piv[j], and the owning lane keeps the product;
+//   LanePivots             -- the owning lane multiplies x[j] by its own
+//                             register copy of the pivot before the shuffle;
+//   nullptr                -- unit diagonal.
+// Either way x[j] becomes x[j] * pivot j by one multiplication, so the forms
+// give the same bits.
 //
 // A step of a substitution is a handful of operations that depend on the step
 // before, so what it costs is the latency of that chain. x therefore lives in
-// registers for the whole sweep (lane l holds entries l, l + 32, ..., kRows of
-// them) and the pivot entry travels by shuffle: the chain is one shuffle and
-// one multiply-add per step, and the loads of L do not depend on it. Going
-// through shared memory instead (store, warp barrier, load) costs ten times
-// as much per step.
+// registers for the whole sweep and the pivot entry travels by shuffle: the
+// chain is one shuffle and one multiply-add per step, and the loads of L do
+// not depend on it. Going through shared memory instead (store, warp barrier,
+// load) costs ten times as much per step.
+//
+// The forward sweep walks L's columns in groups of kGroupCols and calls
+// arrive(g) before the first column of group g, so that a caller whose L is
+// still arriving (csrc/tri_solve.cuh) waits for each group as it needs it.
 
-// x <- L^-1 x for n <= 32 kRows, column-oriented, x in registers (lane l
-// holds entry r * 32 + l in xr[r]); called by one warp. L and piv are plain
-// pointers or SPtr.
-template <typename T, int kRows, typename PL, typename PP>
-__device__ __forceinline__ void warp_forward_sub_regs(PL L, int ld, int n, T (&xr)[kRows], PP piv, int lane) {
+template <typename T, int kRows>
+struct LanePivots {
+  T v[kRows];  // pivot of row 32 r + lane
+};
+struct NoArrive {
+  __device__ void operator()(int) const {}
+};
+
+template <typename T, int kRows, typename PP>
+__device__ __forceinline__ T pivot_read(T (&xc)[kRows], int rj, int j, int jl, int lane, const PP& piv) {
+  if constexpr (std::is_same_v<PP, LanePivots<T, kRows>>) {
+    if (lane == jl) xc[rj] *= piv.v[rj];
+    return __shfl_sync(kFullMask, xc[rj], jl);
+  } else if constexpr (std::is_same_v<PP, std::nullptr_t>) {
+    return __shfl_sync(kFullMask, xc[rj], jl);
+  } else {
+    T y = __shfl_sync(kFullMask, xc[rj], jl);
+    if (given(piv)) {
+      y *= piv[j];
+      if (lane == jl) xc[rj] = y;
+    }
+    return y;
+  }
+}
+
+// x <- L^-1 x (column-oriented) on C right-hand sides in registers
+template <typename T, int kRows, int C, int kGroupCols, typename PL, typename Off, typename PP, typename Arrive>
+__device__ __forceinline__ void warp_forward_sub_regs(PL L, Off off, int n, T (&x)[C][kRows], const PP& piv,
+                                                      Arrive&& arrive, int lane) {
+  static_assert(32 % kGroupCols == 0, "groups of columns tile a register row");
+  constexpr bool kStrided = std::is_same_v<Off, StridedRows>;
+  int ro[kRows];  // where this lane's rows start (a packed triangle's offsets, computed once)
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) ro[r] = kStrided ? 0 : off(r * 32 + lane);
 #pragma unroll
   for (int rj = 0; rj < kRows; ++rj) {
-    const int jend = min(32, n - rj * 32);
-#pragma unroll 4
-    for (int jl = 0; jl < jend; ++jl) {
-      const int j = rj * 32 + jl;
-      T yj = __shfl_sync(kFullMask, xr[rj], jl);
-      if (given(piv)) {
-        yj *= piv[j];
-        if (lane == jl) xr[rj] = yj;
-      }
 #pragma unroll
-      for (int r = rj; r < kRows; ++r) {
-        const int i = r * 32 + lane;
-        if (i > j && i < n) xr[r] -= L[i * ld + j] * yj;
+    for (int q = 0; q < 32 / kGroupCols; ++q) {
+      const int j0 = rj * 32 + q * kGroupCols;
+      if (j0 >= n) break;
+      arrive(j0 / kGroupCols);
+      const int jend = min(kGroupCols, n - j0);
+#pragma unroll 4
+      for (int jj = 0; jj < jend; ++jj) {
+        const int jl = q * kGroupCols + jj, j = j0 + jj;
+        T y[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) y[c] = pivot_read(x[c], rj, j, jl, lane, piv);
+#pragma unroll
+        for (int r = rj; r < kRows; ++r) {
+          const int i = r * 32 + lane;
+          if (i > j && i < n) {
+            const T l = L[(kStrided ? off(i) : ro[r]) + j];
+#pragma unroll
+            for (int c = 0; c < C; ++c) x[c][r] -= l * y[c];
+          }
+        }
       }
     }
   }
 }
 
-// x <- L'^-1 x for n <= 32 kRows, x in registers as above.
-template <typename T, int kRows, typename PL, typename PP>
-__device__ __forceinline__ void warp_backward_sub_regs(PL L, int ld, int n, T (&xr)[kRows], PP piv, int lane) {
+// x <- L'^-1 x (reading row j of L at step j) on C right-hand sides in registers
+template <typename T, int kRows, int C, typename PL, typename Off, typename PP>
+__device__ __forceinline__ void warp_backward_sub_regs(PL L, Off off, int n, T (&x)[C][kRows], const PP& piv, int lane) {
 #pragma unroll
   for (int rj = kRows - 1; rj >= 0; --rj) {
     const int jend = min(32, n - rj * 32);
 #pragma unroll 4
     for (int jl = jend - 1; jl >= 0; --jl) {
-      const int j = rj * 32 + jl;
-      T xj = __shfl_sync(kFullMask, xr[rj], jl);
-      if (given(piv)) {
-        xj *= piv[j];
-        if (lane == jl) xr[rj] = xj;
-      }
+      const int j = rj * 32 + jl, rowj = off(j);
+      T y[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) y[c] = pivot_read(x[c], rj, j, jl, lane, piv);
 #pragma unroll
       for (int r = 0; r <= rj; ++r) {
         const int i = r * 32 + lane;
-        if (i < j) xr[r] -= L[j * ld + i] * xj;
+        if (i < j) {
+          const T l = L[rowj + i];
+#pragma unroll
+          for (int c = 0; c < C; ++c) x[c][r] -= l * y[c];
+        }
       }
     }
   }
+}
+
+// The one-right-hand-side forms on a strided L (K1, and K6 / K7 through the
+// forms below): x <- L^-1 x and x <- L'^-1 x, lane l holding entry r * 32 + l
+// in xr[r]. L and piv are plain pointers or SPtr.
+template <typename T, int kRows, typename PL, typename PP>
+__device__ __forceinline__ void warp_forward_sub_regs(PL L, int ld, int n, T (&xr)[kRows], PP piv, int lane) {
+  T x[1][kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) x[0][r] = xr[r];
+  warp_forward_sub_regs<T, kRows, 1, 32>(L, StridedRows{ld}, n, x, piv, NoArrive{}, lane);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) xr[r] = x[0][r];
+}
+
+template <typename T, int kRows, typename PL, typename PP>
+__device__ __forceinline__ void warp_backward_sub_regs(PL L, int ld, int n, T (&xr)[kRows], PP piv, int lane) {
+  T x[1][kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) x[0][r] = xr[r];
+  warp_backward_sub_regs<T, kRows, 1>(L, StridedRows{ld}, n, x, piv, lane);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) xr[r] = x[0][r];
 }
 
 // x <- L^-1 x for n <= 32 kRows, x in memory (entries xs apart).

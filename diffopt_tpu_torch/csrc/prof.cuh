@@ -1,5 +1,6 @@
 // Phase probes of the kernels, read by tools/pdip_phase_cycles.py (K1),
-// tools/k6_phase_cycles.py (K6) and tools/chol_phase_cycles.py (K4, K5). They are compiled in only with
+// tools/k6_phase_cycles.py (K6), tools/chol_phase_cycles.py (K4, K5) and
+// tools/ldl_phase_cycles.py (K2, K3). They are compiled in only with
 // -DDK_PROFILE; otherwise every macro vanishes and the package's own build
 // carries no trace of them.
 //
@@ -15,6 +16,9 @@
 namespace dk {
 
 constexpr int kProfCounters = 16;
+// the counters of the dense kernels' phases (K2-K5): cycles per instance of its copy in, its factorisation
+// or forward sweep, its backward sweep and its write out, and the instances counted
+enum PhaseProf { kProfCopy, kProfWork, kProfBack, kProfOut, kProfInstances = 15 };
 
 #ifdef DK_PROFILE
 __device__ unsigned long long g_prof[kProfCounters];

@@ -9,7 +9,8 @@ were. Run it in two checkouts, in one call on one card, and compare the lines
 (to run it against a checkout that lacks it: ``PYTHONPATH=<checkout> python3
 <this file>``). Every batch is made on the card from a seed: K1 on the QP
 main path's shape (n = 64, m = 32, p = 16) and on n = 32, m = 16, p = 8 in f32
-and f64, K2 / K3 on quasi-definite matrices of N = 112, K4 / K5 on SPD
+and f64, K2 / K3 on quasi-definite matrices of N = 112 (k = 3) and, from
+generators of their own, N = 112 and 172 (160 in f64; k = 1 and 3), K4 / K5 on SPD
 matrices at every shape the port launches them at (n = 3, 6, 16, 17, 18, 34,
 44, 64, 144 and 160; k = 1, 3 and 16 at each), K6 on the SOCP (n = 16, SOC(17)) in f32 and f64 and the SDP of psd side 4,
 K7 on the entropy family (k = 3) in f32 and f64 and the dual-exp family in
@@ -85,6 +86,19 @@ def main():
             print(f"[digest] K4 chol_factor {tag} n={n}: {digest(Lc)}")
             xs = [chol.cholesky_solve_batched(Lc, r[..., :k].contiguous()) for k in (1, 3, 16)]
             print(f"[digest] K5 chol_solve {tag} n={n} k=1, 3, 16: {digest(*xs)}")
+        # K2 / K3 at the QP paths' N (112: [main]; 172: [qp100], past the register tiles; 160 in f64, whose
+        # envelope ends at 169), from generators of their own
+        for N, Bn in ((112, 8192), (172 if dt == torch.float32 else 160, 2048)):
+            g = _gen(20 + N)
+            M = torch.randn(Bn, N, N, dtype=dt, device=DEVICE, generator=g)
+            K = M @ M.transpose(1, 2) / N + torch.eye(N, dtype=dt, device=DEVICE)
+            K[:, (N * 58) // 100:, (N * 58) // 100:] *= -1.0
+            K = torch.tril(K) + torch.tril(K, -1).transpose(1, 2)
+            L, d = chol.ldl_batched(K)
+            r = torch.randn(Bn, N, 3, dtype=dt, device=DEVICE, generator=g)
+            print(f"[digest] K2 ldl_factor {tag} N={N} B={Bn}: {digest(L, d)}")
+            xs = [chol.ldl_solve_batched(L, d, r[..., 0].contiguous()), chol.ldl_solve_batched(L, d, r)]
+            print(f"[digest] K3 ldl_solve {tag} N={N} k=1, 3: {digest(*xs)}")
     cases = [
         ("SOCP f32", make_socp_batch(8192, n=16, seed=1, device=DEVICE)),
         ("SOCP f64", make_socp_batch(2048, n=16, seed=2, dtype=torch.float64, device=DEVICE)),

@@ -7,7 +7,9 @@ Runs one step forward + backward once to warm up and once under
 time, and the card's name and power limit. ``--path main`` is
 ``solve_qp_batched`` (fused solver, polish, LDL' VJP) and ``--path staged``
 ``solve_qp`` with its defaults (staged solver on the Cholesky kernels, LU
-VJP), both on dense QPs with n = 64, m = 32, p = 16, f32; ``--path conic`` is
+VJP), both on dense QPs with n = 64, m = 32, p = 16, f32; ``--path qp100`` is
+``solve_qp_batched`` on n = 100, m = 48, p = 24 (N = 172; ``--batch`` is
+capped at its 8192); ``--path conic`` is
 ``solve_conic_batched(max_iters=50, tol=1e-5, method="gram")`` (fused conic
 IPM, gram polish and VJP on the Cholesky kernels) on the SOCP of BASELINE
 config 3 (n = 16, SOC(17), f32); ``--path exp`` is ``solve_conic_batched``
@@ -29,7 +31,7 @@ import torch
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=32768)
-    ap.add_argument("--path", choices=("main", "staged", "conic", "exp"), default="main", help="which entry point to profile")
+    ap.add_argument("--path", choices=("main", "staged", "qp100", "conic", "exp"), default="main", help="which entry point to profile")
     ap.add_argument("--rows", type=int, default=16, help="rows of the table")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -47,6 +49,9 @@ def main():
     elif args.path == "exp":
         args.batch = min(args.batch, 16384)
         prog = make_entropy_batch(args.batch, k=3, seed=0).map(lambda t: t.requires_grad_())
+    elif args.path == "qp100":
+        args.batch = min(args.batch, 8192)
+        prog = make_batch(args.batch, 100, 48, 24, torch.float32, "cuda", gen).map(lambda t: t.requires_grad_())
     else:
         prog = make_batch(args.batch, 64, 32, 16, torch.float32, "cuda", gen).map(lambda t: t.requires_grad_())
 
@@ -57,7 +62,7 @@ def main():
     def step():
         for t in prog.tensors():
             t.grad = None
-        if args.path == "main":
+        if args.path in ("main", "qp100"):
             sol, _ = dtt.solve_qp_batched(prog, max_iters=25, with_info=True)
         elif args.path == "staged":
             sol, _ = dtt.solve_qp(prog, with_info=True)
@@ -101,8 +106,9 @@ def main():
         f" in the solvers' loops and the 'auto' KKT route; path = {args.path}, B = {args.batch}, on {card}"
     )
     by = lambda *keys: sum(e.self_device_time_total for e in events if any(k in e.key for k in keys)) / 1e3
-    ours = {"K1 pdip": by("pdip_kernel"), "K2 ldl_factor": by("ldl_factor_kernel"), "K3 ldl_solve": by("ldl_solve_kernel"),
-            "K4 chol_factor": by("chol_factor_"), "K5 chol_solve": by("chol_solve_"),
+    # (K3 and K5 are one kernel template, tri_solve_kernel, told apart by its diagonal policy)
+    ours = {"K1 pdip": by("pdip_kernel"), "K2 ldl_factor": by("ldl_factor_"), "K3 ldl_solve": by("LdlDiag"),
+            "K4 chol_factor": by("chol_factor_"), "K5 chol_solve": by("CholDiag"),
             "K6 conic_pdip": by("conic_kernel"), "K7 ns_pdip": by("ns_kernel")}
     own_ms = sum(ours.values())
     print("hand-written kernels: " + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items() if v)

@@ -259,3 +259,86 @@ def test_cholesky_pair_plain_matches_pallas_at_the_staged_schur_shape(staged_sch
     xt = tchol.cholesky_solve_batched(Lt, torch.from_numpy(rhs)).numpy()
     np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-12)
     np.testing.assert_allclose(H @ xt, rhs, rtol=0, atol=1e-11)
+
+
+# --- the LDL' pair's launch rule (pure Python: the mirror of csrc/ldl.cu's ldl_team) -------------------------
+
+
+def _ldl_factor_rule(N, itemsize):
+    """The factor's team written from the C++ rule: one warp to 40 rows, two warps to 128 rows in f32 and
+    64 in f64 (their register tiles), eight warps past that (registers to 176 rows in f32 and 128 in f64,
+    shared memory beyond)."""
+    return 1 if N <= 40 else 2 if N <= (128 if itemsize == 4 else 64) else 8
+
+
+def _ldl_solve_rule(N, k):
+    """The solve's team written from the C++ rule: at k = 1 one warp to 64 rows, four to 128, eight past
+    that (one solves, the rest help to copy L); two warps for k > 1."""
+    return (1 if N <= 64 else 4 if N <= 128 else 8) if k == 1 else 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ldl_launch_rule_takes_every_shape_with_the_smallest_team_and_is_monotone(dtype):
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    top = tchol.ldl_max_n(dtype)
+    for k in (0, 1, 3):
+        teams = tchol.FACTOR_TEAMS if k == 0 else tchol.LDL_SOLVE_TEAMS
+        threads = 0
+        for N in range(1, top + 1):
+            team, per = tchol.ldl_team_for(N, k, itemsize)
+            takers = [t for t in teams if tchol.ldl_team_takes(N, k, itemsize, t)]
+            assert team in takers, (N, k, team, takers)
+            if k == 0:  # the factor's smallest team that takes N
+                assert team == takers[0], (N, team, takers)
+            assert team == (_ldl_factor_rule(N, itemsize) if k == 0 else _ldl_solve_rule(N, k)), (N, k)
+            assert per == tchol.ldl_per_block_of(N, k, itemsize, team) >= 1
+            assert tchol.ldl_smem_bytes(N, k, itemsize, team) <= tchol.MAX_SMEM_BYTES
+            assert 32 * team >= threads  # never fewer warps per instance for a larger N
+            threads = 32 * team
+            if k == 0 and N <= tchol.ldl_tile_max_n(8, itemsize):  # the team holds N rows in its register tiles
+                assert N <= tchol.ldl_tile_max_n(team, itemsize)
+    # the [main] path's N = 112 and [qp100]'s N = 172 in f32
+    assert tchol.ldl_team_for(112, 0, 4)[0] == 2 and tchol.ldl_team_for(172, 0, 4) == (8, 1)
+    assert tchol.ldl_team_for(112, 1, 4) == (4, 1) and tchol.ldl_team_for(172, 1, 4) == (8, 1)
+    # one-warp solve instances packed for the most on an SM: one to a block at N = 32 would hold 32, four 64
+    assert tchol.ldl_team_for(32, 1, 4) == (1, 4)
+
+
+def test_ldl_envelope_pinned():
+    # ops/kkt.py chooses LDL' against LU by this: the packed layouts would hold more, and must not move it
+    assert tchol.ldl_max_n(torch.float32) == 239 and tchol.ldl_max_n(torch.float64) == 169
+    for k in (0, 1, 16):
+        assert tchol.ldl_team_for(239, k, 4)[0] and tchol.ldl_team_for(169, k, 8)[0]
+        assert tchol.ldl_team_for(240, k, 4) == (0, 0) and tchol.ldl_team_for(170, k, 8) == (0, 0)
+    assert tchol.ldl_team_for(129, 0, 4) == (8, 1) and tchol.ldl_team_for(177, 0, 4) == (8, 1)  # eight warps
+    assert tchol.ldl_smem_bytes(176, 0, 4, 8) < 4096 < tchol.ldl_smem_bytes(177, 0, 4, 8)  # registers, then shared memory
+
+
+def test_ldl_forced_launch_off_its_shape_raises_and_cpu_launches_nothing():
+    K, rng = _quasi_definite(4, 48, seed=12)
+    Kt = torch.from_numpy(K)
+    rhs = torch.from_numpy(rng.normal(size=(4, 48)))
+    for team in (1, 4, 3):  # one warp's tiles hold 40 rows; teams of 3 and 4 warps are not built
+        with pytest.raises(ValueError):
+            tchol.ldl_batched(Kt, team=team)
+    for team in (3, 16):  # one right-hand side: 1, 2, 4 or 8 warps
+        with pytest.raises(ValueError):
+            tchol.ldl_solve_batched(Kt, Kt[:, 0], rhs, team=team)
+    for team in (1, 8):  # several right-hand sides: two warps
+        with pytest.raises(ValueError):
+            tchol.ldl_solve_batched(Kt, Kt[:, 0], rhs[..., None].expand(4, 48, 3), team=team)
+    K70, _ = _quasi_definite(2, 70, seed=13)
+    with pytest.raises(ValueError):  # two warps hold 64 rows in f64
+        tchol.ldl_batched(torch.from_numpy(K70), team=2)
+    with pytest.raises(ValueError):  # past 128 rows only eight warps
+        tchol.ldl_batched(torch.zeros(1, 130, 130, dtype=torch.float32), team=2)
+    counts = lambda: (tchol.ldl_batched.launches, tchol.ldl_solve_batched.launches,
+                      dict(tchol.ldl_batched.launches_by_shape), dict(tchol.ldl_solve_batched.launches_by_shape))
+    before = counts()
+    # a launch that takes the shape runs the plain version on CPU tensors: the same result as the rule's
+    L, d = tchol.ldl_batched(Kt, team=8)
+    Lr, dr = tchol.ldl_batched(Kt)
+    assert torch.equal(L, Lr) and torch.equal(d, dr)
+    x = tchol.ldl_solve_batched(L, d, rhs, team=1)
+    np.testing.assert_allclose(np.einsum("bij,bj->bi", K, x.numpy()), rhs.numpy(), rtol=0, atol=1e-9)
+    assert counts() == before

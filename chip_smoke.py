@@ -52,7 +52,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    difference, ``ConicDiffContext``, ``lsqr`` past the LSQR threshold on the
    staged solver's condensed route, ``ParametricProgram(kind="conic")`` and an
    exp-cone program against its analytic solution;
-7. the nonsymmetric-cone path: the fused dual-scaling IPM (K7) against its
+7. the nonsymmetric-cone path: the fused dual-scaling IPM (K7) at every team
+   size that takes each layout (the same bits at every team) against its
    plain version (the entropy family of the exp benchmark in f32 at B = 16384
    and in f64, the pow family and a dual_exp layout in f64: f32 as a stated
    distribution, f64 exactly through the first 8 bodies and, to the
@@ -66,7 +67,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    program and on the entropy family, the exp / pow DPi against a central
    difference of Pi, and a padded heterogeneous exp / pow batch;
 8. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``,
-   ``exp``, ``k6_teams``, ``k1_teams``, ``chol_teams``, ``ldl_teams`` and
+   ``exp``, ``k6_teams``, ``k7_teams``, ``k1_teams``, ``chol_teams``, ``ldl_teams`` and
    ``{"kernels": [...]}`` (K1-K7; K2 and K3 at N = 112 and 172, K4 and K5 one
    entry per shape a path launched them at, with its launches per step on
    each path),
@@ -606,8 +607,9 @@ def rel_err(a, b):
 # SOCP, 17 on the [exp] entropy family, 18 / 44 / 144 on the [sdp] sides 4 / 8 / 16) and the condensed
 # route of the staged conic solver on the [sdp] side 16 (n = 3, the variables). Held beside them, and
 # launched by no path driven here: n = 6 (a small gram system), (16, 16) (k > 1 at n <= 32), and n = 160
-# with (160, 3) at B = 256 (the shared-memory factor and a k > 1 solve past 128 rows, which the staged
-# solvers reach with more than 128 variables)
+# with (160, 3) at B = 256 (a factor and a k > 1 solve past 128 rows, which the staged solvers reach with
+# more than 128 variables). In f32 the factors at n = 144 and 160 run in eight warps' registers, in f64
+# in shared memory (ops/cuda/chol.py::chol_tile_max_n)
 CHOL_FACTOR_SHAPES = {3: 4096, 6: 16384, 16: 32768, 17: 16384, 18: 4096, 34: 32768, 44: 4096, 64: 32768,
                       144: 4096, 160: 256}
 CHOL_SOLVE_SHAPES = {(3, 1): 4096, (6, 1): 16384, (16, 1): 32768, (16, 16): 32768, (17, 1): 16384,
@@ -730,7 +732,10 @@ def phase_kernels_chol(batch, gen):
         rec = _hold_chol(chol, op, H, rhs, main)
         if rec is not None:
             entries[rec["name"]] = rec
+            n = H.shape[1]
+            route = "registers" if op == "solve" or n <= chol.chol_tile_max_n(8, 4) else "shared memory"
             teams[rec["name"]] = dict(rule=_launch_tag((rec["team_warps"], rec["per_block"])), batch=H.shape[0],
+                                      route=route,
                                       ms_by_team=rec["ms_by_team"], instances_per_sm=rec["instances_per_sm"],
                                       eager_ms=rec.pop("eager_ms"), bound_ms=rec["bound_ms"],
                                       plain_ms=rec["plain_ms"], library_ms=rec["library_ms"])
@@ -1847,34 +1852,6 @@ def ns_pdip_flops(n, p, l, soc_dims, ns_blocks, iterations, dtype=torch.float32)
     return float(its.sum()) * (body + metrics) + its.numel() * (grad + 3 * metrics)
 
 
-def ns_internal(cp):
-    """K7's inputs for a ConeProgram batch: rows through the static transform R."""
-    from diffopt_tpu_torch.solvers import conic_ipm
-
-    R, p, l, socs, _, ns = conic_ipm._row_transform(cp.cones, allow_ns=True)
-    R = torch.as_tensor(R, dtype=cp.A.dtype, device=cp.A.device)
-    A = torch.einsum("ij,bjk->bik", R, cp.A)
-    b = cp.b @ R.T
-    return (cp.c, b[:, :p], b[:, p:], A[:, :p], A[:, p:]), (p, l, socs, ns)
-
-
-def dual_exp_batch(B, dtype, gen):
-    """min u s.t. (u, beta, gamma) in K_exp* (the dual-exp family of the JAX package's nonsymmetric tests)
-    with one zero row fixing a second variable, so that the fused kernel takes it: beta, gamma uniform in
-    [0.5, 2]."""
-    from diffopt_tpu_torch import ConeProgram, ConeSpec
-
-    A = torch.zeros(B, 4, 2, dtype=dtype, device=DEVICE)
-    A[:, 0, 1] = 1.0
-    A[:, 1, 0] = -1.0
-    b = torch.zeros(B, 4, dtype=dtype, device=DEVICE)
-    b[:, 0] = 1.0
-    b[:, 2:] = 0.5 + 1.5 * torch.rand(B, 2, dtype=dtype, device=DEVICE, generator=gen)
-    c = torch.zeros(B, 2, dtype=dtype, device=DEVICE)
-    c[:, 0] = 1.0
-    return ConeProgram(A, b, c, ConeSpec([("zero", 1), ("dual_exp", 3)]))
-
-
 def _inst_diff(out, ref):
     """Per-instance relative difference over x, yE, yC and s."""
     return torch.stack([(a - b).abs().amax(-1) / (1.0 + b.abs().amax(-1))
@@ -1898,110 +1875,157 @@ def _ulp_draws(args, idx, draws, gen):
     return out
 
 
-def phase_kernels_ns(batch, gen):
-    """K7 against its plain version: the entropy family of [exp] in f32 at the full width and in f64, the
-    pow family and a dual_exp layout in f64. Returns the entry of the ``kernels`` line."""
+def _hold_k7(label, out, ref, args, lay, kw, tol, f64, shared, ugen):
+    """K7's outputs ``out`` (one team's) against its plain version ``ref`` with the TOL_K7_* checks; the plain
+    runs they need beyond ``ref`` (capped, one ulp of c, the one-ulp draws of far instances) are computed
+    once per batch into ``shared``. Returns the agreement record."""
     from diffopt_tpu_torch.ops.cuda import ns_pdip
-    from diffopt_tpu_torch.utils.testing import make_entropy_batch, make_pow_batch
+
+    B = args[0].shape[0]
+    inst = _inst_diff(out, ref)
+    conv = lambda o: float((torch.maximum(torch.maximum(o[5], o[6]), o[7]) < 10 * tol).float().mean())
+    differ = float((out[4] != ref[4]).float().mean())
+    med, q99, worst = _dist(inst)
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(out[:4], ref[:4]) if a.numel())
+    print(f"[kernels] ns_pdip {label} B={B} layout {lay} tol {tol:.0e}: per-instance relative diff median"
+          f" {med:.3e}, 99% {q99:.3e}, max {worst:.3e}; converged {conv(out):.4%} (plain {conv(ref):.4%});"
+          f" iterations mean {float(out[4].float().mean()):.2f} vs plain {float(ref[4].float().mean()):.2f},"
+          f" differ on {differ:.3%}; plain {shared['plain_ms']:.0f} ms")
+    check(all(bool(torch.isfinite(t).all()) for t in out[:4]), f"ns_pdip {label}: non-finite output")
+    check(conv(out) >= 0.99 and conv(ref) >= 0.99, f"ns_pdip {label}: converged shares {conv(out)}, {conv(ref)}")
+    dist = dict(median=med, q99=q99, max=worst, iterations_differ=differ, converged=conv(out),
+                plain_converged=conv(ref), max_abs_err=max_abs)
+    if not f64:
+        check(med <= TOL_K7_F32["median"] and q99 <= TOL_K7_F32["q99"],
+              f"ns_pdip {label} disagrees with its plain version: median {med:.3e}, 99% {q99:.3e}")
+        return dist
+    same = out[4] == ref[4]
+    dist["max_same_iterations"] = float(inst[same].max()) if bool(same.any()) else 0.0
+    # (1) the first bodies: the same computation
+    capped = dict(kw, max_iters=K7_CAPPED_BODIES, tol=0.0)
+    if "capped" not in shared:
+        shared["capped"] = ns_pdip.solve_tile_fused_ns_plain(*args, lay, **capped)
+    cap = _inst_diff(ns_pdip.solve_tile_fused_ns(*args, lay, team=shared["team"], **capped), shared["capped"])
+    cap_share = float((cap > TOL_K7_CAPPED["q99"]).float().mean())
+    dist.update(capped_q99=float(torch.quantile(cap, 0.99)), capped_share_apart=cap_share)
+    # (2) to the tolerance: against the plain version's own spread under one ulp of c
+    if "ulp" not in shared:
+        c_ulp = args[0] * (1.0 + torch.finfo(args[0].dtype).eps)
+        shared["ulp"] = ns_pdip.solve_tile_fused_ns_plain(c_ulp, *args[1:], lay, **kw)
+    ulp = shared["ulp"]
+    ulp_inst = _inst_diff(ulp, ref)
+    u_med, u_q99, u_max = _dist(ulp_inst)
+    u_differ = float((ulp[4] != ref[4]).float().mean())
+    dist.update(ulp_median=u_med, ulp_q99=u_q99, ulp_max=u_max, ulp_iterations_differ=u_differ)
+    # an instance further than sp["max"]: a stall the plain version makes at the kernel's point on the
+    # instance's data moved by one ulp?
+    sp = TOL_K7_F64_SPREAD
+    err = lambda o: torch.maximum(torch.maximum(o[5], o[6]), o[7])
+    far = (inst > sp["max"]).nonzero()[:, 0]
+    hits, far_unconverged = [], bool((err(out)[far] >= 10 * tol).all())
+    if len(far):
+        R = K7_ULP_DRAWS
+        key = tuple(far.tolist())
+        if key not in shared:
+            shared[key] = ns_pdip.solve_tile_fused_ns_plain(*_ulp_draws(args, far, R, ugen), lay, **kw)
+        runs = shared[key]
+        primal = _inst_diff([out[0][far].repeat_interleave(R, 0), out[3][far].repeat_interleave(R, 0)],
+                            [runs[0], runs[3]])
+        stalled_there = (primal <= sp["max"]) & (err(runs) >= 10 * tol)
+        hits = [int(h) for h in stalled_there.view(len(far), R).sum(1)]
+    dist.update(far=len(far), far_ulp_stalls=hits, far_instances=[int(i) for i in far])
+    print(f"[kernels] ns_pdip {label}: capped at {K7_CAPPED_BODIES} bodies diff median {float(cap.median()):.3e},"
+          f" 99% {dist['capped_q99']:.3e}, above {TOL_K7_CAPPED['q99']:.0e} on {cap_share:.3%}; where both took the same"
+          f" steps max {dist['max_same_iterations']:.3e}; the plain version against itself with c moved by one ulp:"
+          f" median {u_med:.3e}, 99% {u_q99:.3e}, max {u_max:.3e}, iteration counts differ on {u_differ:.3%};"
+          f" {len(far)} instances further than {sp['max']:.0e}"
+          + (f" ({[int(i) for i in far]}; the kernel reports {'all' if far_unconverged else 'not all'} of them"
+             f" unconverged), on whose data moved by one ulp the plain version stalls at the kernel's primal point"
+             f" in {hits} of {K7_ULP_DRAWS} draws" if len(far) else ""))
+    if len(far):  # their data, exactly (float.hex), so that an instance can be kept as a test case
+        dist["far_data"] = [dict(c=[v.hex() for v in args[0][i].tolist()], bE=[v.hex() for v in args[1][i].tolist()],
+                                 bC=[v.hex() for v in args[2][i].tolist()]) for i in far.tolist()]
+        print(f"[kernels] ns_pdip {label}: the far instances' c, bE, bC: {json.dumps(dist['far_data'])}")
+    check(dist["capped_q99"] <= TOL_K7_CAPPED["q99"] and cap_share <= TOL_K7_CAPPED["share"],
+          f"ns_pdip {label}: the first bodies disagree (99% {dist['capped_q99']:.3e}, apart on {cap_share:.3%})")
+    lim = lambda u: sp["factor"] * max(u, sp["floor"])
+    check(med <= lim(u_med) and q99 <= lim(u_q99),
+          f"ns_pdip {label}: kernel and plain part further than one ulp of the data moves the plain version")
+    check(len(far) <= sp["far_share"] * B and far_unconverged and all(h > 0 for h in hits),
+          f"ns_pdip {label}: {len(far)} instances further than {sp['max']:.0e} from the plain version"
+          f" (reported unconverged: {far_unconverged}), which stalls there on one-ulp moves of their data"
+          f" in {hits} of {K7_ULP_DRAWS} draws")
+    check(differ <= u_differ + sp["share_margin"], f"ns_pdip {label}: iteration counts differ on {differ:.3%}")
+    return dist
+
+
+def phase_kernels_ns(batch, gen):
+    """K7 against its plain version at every team that takes each layout: the entropy family of [exp] in
+    f32 at the full width and in f64, the pow family and a dual_exp layout in f64; every team must give
+    the same bits. Times by team and residency for the first four (the ``k7_teams`` line). Returns the
+    entry of the ``kernels`` line."""
+    from diffopt_tpu_torch.ops.cuda import ns_pdip
+    from diffopt_tpu_torch.utils.testing import make_dual_exp_batch, make_entropy_batch, make_pow_batch, ns_internal_rows
 
     Bf = min(batch, EXP_BATCH)
     cases = [
         ("entropy f32", make_entropy_batch(Bf, k=EXP_K, seed=1, device=DEVICE), 5e-6),
         ("entropy f64", make_entropy_batch(min(batch, 4096), k=EXP_K, seed=2, dtype=torch.float64, device=DEVICE), 1e-8),
         ("pow f64", make_pow_batch(min(batch, 1024), seed=3, device=DEVICE), 1e-8),
-        ("dual_exp f64", dual_exp_batch(min(batch, 1024), torch.float64, gen), 1e-8),
+        ("dual_exp f64", make_dual_exp_batch(min(batch, 1024), device=DEVICE, generator=gen), 1e-8),
     ]
+    timed_cases = {label for label, _, _ in cases}
     for seed in K7_DUAL_EXP_SEEDS:
         dgen = torch.Generator(device=DEVICE)
         dgen.manual_seed(seed)
-        cases.append((f"dual_exp f64 seed {seed}", dual_exp_batch(min(batch, 1024), torch.float64, dgen), 1e-8))
+        cases.append((f"dual_exp f64 seed {seed}", make_dual_exp_batch(min(batch, 1024), device=DEVICE, generator=dgen), 1e-8))
     ugen = torch.Generator(device=DEVICE)  # the one-ulp draws, apart from the generator later phases share
     ugen.manual_seed(0)
-    entry, dists = None, {}
+    entry, dists, by_layout = None, {}, {}
     for label, cp, tol in cases:
-        args, lay = ns_internal(cp)
+        args, lay = ns_internal_rows(cp)
         B, f64 = cp.batch_size, cp.A.dtype == torch.float64
         kw = dict(max_iters=150, tol=tol, reg=1e-11 if f64 else 1e-7, eps=1e-15 if f64 else 1e-7)
-        out = ns_pdip.solve_tile_fused_ns(*args, lay, **kw)
+        n, (p, l, socs, ns) = cp.num_vars, lay
+        item = cp.A.element_size()
+        rule = ns_pdip.team_for(n, p, l, socs, ns, item)
+        teams = [t for t in ns_pdip.TEAMS if ns_pdip.team_takes(n, p, l, socs, ns, item, t)]
+        check(rule in teams, f"ns_pdip {label}: the rule's team {rule} does not take the layout")
         ref, plain_ms = wall_ms(lambda: ns_pdip.solve_tile_fused_ns_plain(*args, lay, **kw))
-        inst = _inst_diff(out, ref)
-        conv = lambda o: float((torch.maximum(torch.maximum(o[5], o[6]), o[7]) < 10 * tol).float().mean())
-        differ = float((out[4] != ref[4]).float().mean())
-        med, q99, worst = _dist(inst)
-        max_abs = max(float((a - b).abs().max()) for a, b in zip(out[:4], ref[:4]) if a.numel())
-        print(f"[kernels] ns_pdip {label} B={B} layout {lay} tol {tol:.0e}: per-instance relative diff median"
-              f" {med:.3e}, 99% {q99:.3e}, max {worst:.3e}; converged {conv(out):.4%} (plain {conv(ref):.4%});"
-              f" iterations mean {float(out[4].float().mean()):.2f} vs plain {float(ref[4].float().mean()):.2f},"
-              f" differ on {differ:.3%}; plain {plain_ms:.0f} ms")
-        check(all(bool(torch.isfinite(t).all()) for t in out[:4]), f"ns_pdip {label}: non-finite output")
-        check(conv(out) >= 0.99 and conv(ref) >= 0.99, f"ns_pdip {label}: converged shares {conv(out)}, {conv(ref)}")
-        dist = dict(median=med, q99=q99, max=worst, iterations_differ=differ, converged=conv(out),
-                    plain_converged=conv(ref))
-        if f64:
-            same = out[4] == ref[4]
-            dist["max_same_iterations"] = float(inst[same].max()) if bool(same.any()) else 0.0
-            # (1) the first bodies: the same computation
-            capped = dict(kw, max_iters=K7_CAPPED_BODIES, tol=0.0)
-            cap = _inst_diff(ns_pdip.solve_tile_fused_ns(*args, lay, **capped),
-                             ns_pdip.solve_tile_fused_ns_plain(*args, lay, **capped))
-            cap_share = float((cap > TOL_K7_CAPPED["q99"]).float().mean())
-            dist.update(capped_q99=float(torch.quantile(cap, 0.99)), capped_share_apart=cap_share)
-            # (2) to the tolerance: against the plain version's own spread under one ulp of c
-            c_ulp = args[0] * (1.0 + torch.finfo(args[0].dtype).eps)
-            ulp = ns_pdip.solve_tile_fused_ns_plain(c_ulp, *args[1:], lay, **kw)
-            ulp_inst = _inst_diff(ulp, ref)
-            u_med, u_q99, u_max = _dist(ulp_inst)
-            u_differ = float((ulp[4] != ref[4]).float().mean())
-            dist.update(ulp_median=u_med, ulp_q99=u_q99, ulp_max=u_max, ulp_iterations_differ=u_differ)
-            # an instance further than sp["max"]: a stall the plain version makes at the kernel's point on
-            # the instance's data moved by one ulp?
-            sp = TOL_K7_F64_SPREAD
-            err = lambda o: torch.maximum(torch.maximum(o[5], o[6]), o[7])
-            far = (inst > sp["max"]).nonzero()[:, 0]
-            hits, far_unconverged = [], bool((err(out)[far] >= 10 * tol).all())
-            if len(far):
-                R = K7_ULP_DRAWS
-                runs = ns_pdip.solve_tile_fused_ns_plain(*_ulp_draws(args, far, R, ugen), lay, **kw)
-                primal = _inst_diff([out[0][far].repeat_interleave(R, 0), out[3][far].repeat_interleave(R, 0)],
-                                    [runs[0], runs[3]])
-                stalled_there = (primal <= sp["max"]) & (err(runs) >= 10 * tol)
-                hits = [int(h) for h in stalled_there.view(len(far), R).sum(1)]
-            dist.update(far=len(far), far_ulp_stalls=hits)
-            print(f"[kernels] ns_pdip {label}: capped at {K7_CAPPED_BODIES} bodies diff median {float(cap.median()):.3e},"
-                  f" 99% {dist['capped_q99']:.3e}, above {TOL_K7_CAPPED['q99']:.0e} on {cap_share:.3%}; where both took the same steps max {dist['max_same_iterations']:.3e};"
-                  f" the plain version against itself with c moved by one ulp: median {u_med:.3e}, 99% {u_q99:.3e},"
-                  f" max {u_max:.3e}, iteration counts differ on {u_differ:.3%}; {len(far)} instances further than"
-                  f" {sp['max']:.0e}" + (f" (the kernel reports {'all' if far_unconverged else 'not all'} of them"
-                  f" unconverged), on whose data moved by one ulp the plain version stalls at the kernel's primal"
-                  f" point in {hits} of {K7_ULP_DRAWS} draws" if len(far) else ""))
-            check(dist["capped_q99"] <= TOL_K7_CAPPED["q99"] and cap_share <= TOL_K7_CAPPED["share"],
-                  f"ns_pdip {label}: the first bodies disagree (99% {dist['capped_q99']:.3e}, apart on {cap_share:.3%})")
-            lim = lambda u: sp["factor"] * max(u, sp["floor"])
-            check(med <= lim(u_med) and q99 <= lim(u_q99),
-                  f"ns_pdip {label}: kernel and plain part further than one ulp of the data moves the plain version")
-            check(len(far) <= sp["far_share"] * B and far_unconverged and all(h > 0 for h in hits),
-                  f"ns_pdip {label}: {len(far)} instances further than {sp['max']:.0e} from the plain version"
-                  f" (reported unconverged: {far_unconverged}), which stalls there on one-ulp moves of their data"
-                  f" in {hits} of {K7_ULP_DRAWS} draws")
-            check(differ <= u_differ + sp["share_margin"], f"ns_pdip {label}: iteration counts differ on {differ:.3%}")
-        else:
-            check(med <= TOL_K7_F32["median"] and q99 <= TOL_K7_F32["q99"],
-                  f"ns_pdip {label} disagrees with its plain version: median {med:.3e}, 99% {q99:.3e}")
-            ms = time_ms(lambda: ns_pdip.solve_tile_fused_ns(*args, lay, **kw), reps=3)
-            n, (p, l, socs, ns) = cp.num_vars, lay
+        shared = dict(plain_ms=plain_ms, team=rule)
+        outs, per_team = {}, {}
+        for t in teams:
+            outs[t] = ns_pdip.solve_tile_fused_ns(*args, lay, team=t, **kw)
+            shared["team"] = t
+            per_team[t] = _hold_k7(f"{label} team {t}", outs[t], ref, args, lay, kw, tol, f64, shared, ugen)
+        same = all(all(torch.equal(a, b) for a, b in zip(outs[t], outs[rule])) for t in teams)
+        check(same, f"ns_pdip {label}: the teams {teams} do not give the same bits")
+        rec = dict(team=rule, B=B, N=n + p + args[2].shape[1], same_bits=same)
+        if label in timed_cases:
+            rec["ms_by_team"] = {str(t): time_ms(lambda t=t: ns_pdip.solve_tile_fused_ns(*args, lay, team=t, **kw),
+                                                 reps=3) for t in teams}
+            rec["resident_by_team"] = {str(t): ns_pdip.blocks_per_sm(n, p, l, socs, ns, cp.A.dtype, t) for t in teams}
+            print(f"[kernels] ns_pdip {label}: the same bits at teams {teams}; device ms by team {rec['ms_by_team']},"
+                  f" teams resident per SM {rec['resident_by_team']}")
+        by_layout[label] = rec
+        dists[label] = per_team[rule]
+        if not f64:
+            out = outs[rule]
+            ms = rec["ms_by_team"][str(rule)]
             mC = args[2].shape[1]
             bytes_moved = B * 4 * ((p + mC) * (n + 1) + n + (n + p + 2 * mC + 4))
             flops = ns_pdip_flops(n, p, l, socs, ns, out[4])
             b_ms, b_by = bound(bytes_moved, flops)
-            print(f"[kernels] ns_pdip {label} B={B}: {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}: {flops / B:.0f}"
-                  f" operations per instance; plain {plain_ms:.0f} ms)")
+            print(f"[kernels] ns_pdip {label} B={B}: {ms:.3f} ms on the rule's team of {rule} warps (bound {b_ms:.3f} ms"
+                  f" by {b_by}: {flops / B:.0f} operations per instance; plain {plain_ms:.0f} ms)")
             entry = dict(name="ns_pdip", route="cuda", source="diffopt_tpu_torch/csrc/ns_pdip.cu",
-                         replaces="diffopt_tpu/ops/pallas/ns_pdip.py:224", max_abs_err=max_abs, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        dists[label] = dist
-        del out, ref, cp
+                         replaces="diffopt_tpu/ops/pallas/ns_pdip.py:224", max_abs_err=per_team[rule]["max_abs_err"],
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, team_warps=rule,
+                         ms_by_team=rec["ms_by_team"])
+        del outs, ref, cp, shared
         torch.cuda.empty_cache()
     entry["agreement"] = dists
+    entry["k7_teams"] = by_layout
     return {"ns_pdip": entry}
 
 
@@ -2269,10 +2293,11 @@ def main(argv=None):
           f" B = {exp['batch']}) on {card}")
     print(json.dumps({"exp": {**exp, "ns_pdip_agreement": entries["ns_pdip"].pop("agreement"), "card": card}}))
     print(json.dumps({"k6_teams": {**entries["conic_pdip"].pop("k6_teams"), "card": card}}))
+    print(json.dumps({"k7_teams": {**entries["ns_pdip"].pop("k7_teams"), "card": card}}))
     print(json.dumps({"k1_teams": {**k1_teams, "card": card}}))
     print(json.dumps({"chol_teams": {**chol_teams, "card": card}}))
     print(json.dumps({"ldl_teams": {**ldl_teams, "card": card}}))
-    # K1's, K4's, K5's and K6's launch rule and their time at every team size
+    # K1's, K4's, K5's, K6's and K7's launch rule and their time at every team size
     team_keys = ("team_warps", "ms_by_team", "per_block", "launches_per_step")
     print(json.dumps({"kernels": [{k: e[k] for k in keys + team_keys if k in keys or k in e} for e in entries.values()]}))
     print(card)

@@ -21,16 +21,19 @@
 // design gives each instance the fewest threads that serve it and puts as
 // many instances on an SM as it holds, each chain overlapping the others:
 //
-// Factor. Up to n = 128 the matrix lives in the registers of a team of 1, 2
-// or 8 warps (dense.cuh: Team, TileGrid, factor_grid, the same register-tiled
-// elimination as K1 and K6, whose update order does not depend on the team:
-// every team size gives the same bits), one team per instance; the smallest team whose
-// tiles hold n takes it (one warp to 40 rows, two to 64, eight to 128;
-// chol_team). One-warp teams are packed two to a block (blockDim = (32, 2)),
-// so that an SM holds more of them than its 32 resident blocks.
-// Past 128 rows one block of eight warps factorises in shared memory
-// (factor_lower). The first pivot that is not > 0 is found by warp ballots
-// over the pivots.
+// Factor. The matrix lives in the registers of a team of 1, 2 or 8 warps
+// (dense.cuh: Team, TileGrid, factor_grid, the same register-tiled
+// elimination as K1, K2 and K6, whose update order does not depend on the
+// team: every team size gives the same bits), one team per instance, one
+// instantiation per (type, team, cover) (CholCovers); the smallest team whose
+// tiles hold n takes it (one warp to 40 rows, two to 64, eight to 176 in f32
+// and 128 in f64: chol_tile_max_n; chol_team). One-warp teams are packed two
+// to a block (blockDim = (32, 2)), so that an SM holds more of them than its
+// 32 resident blocks. Past the eight-warp tiles one block of eight warps
+// factorises in shared memory (factor_lower), the same operations in the
+// same order. At n = 144 (the [sdp] gram route) the shared-memory route paid
+// a load and a store for every multiply-add, and ran at 6% of its bound. The
+// first pivot that is not > 0 is found by warp ballots over the pivots.
 //
 // Solve (csrc/tri_solve.cuh, shared with the LDL' solve K3). One warp per
 // instance at k = 1, four warps packed into a block. For k > 1 one copy of L
@@ -47,8 +50,8 @@
 // what the reference's rsqrt leaves behind, and the solvers' NaN guards freeze
 // that instance.
 //
-// Envelope: the factor past n = 128 needs (n * odd(n) + n) words of shared
-// memory in 227 KB; the solve n <= 256 (32 lanes x 8 register rows) and its
+// Envelope: the factor past its register tiles needs (n * odd(n) + n) words
+// of shared memory in 227 KB; the solve n <= 256 (32 lanes x 8 register rows) and its
 // packed triangle, n (n + 1) / 2 words, in 227 KB.
 #include "dense.cuh"
 #include "prof.cuh"
@@ -71,11 +74,27 @@ __device__ inline double quiet_nan<double>() { return __longlong_as_double(0x7ff
 // fit), the counts that were timed fastest, or within a few percent of it, on
 // an H100 (PERF.md).
 
+// The row counts each (type, team) factorises in registers (the covers of its
+// tile sets, smallest first; the last is the most it takes): the team's
+// TileGrid covers, and for eight warps in f32 144 (n = 144, the [sdp] gram
+// route: 45 live entries a thread) and 176 (66), as K2's LdlCovers.
+template <typename T, int TW> struct CholCovers {
+  static constexpr int kNum = TileGrid<TW>::kNumCovers;
+  static constexpr const int* kCovers = TileGrid<TW>::kCovers;
+};
+template <> struct CholCovers<float, 8> { static constexpr int kNum = 5, kCovers[5] = {32, 64, 128, 144, 176}; };
+
+// rows a factor team of tw warps holds in its register tiles; past the
+// eight-warp team's, the shared-memory route
+__host__ __device__ constexpr int chol_tile_max_n(int tw, int itemsize) {
+  return tw == 8 && itemsize == 4 ? 176 : tile_max_n(tw);
+}
+
 // shared-memory words of one instance: the factor's pivots and the team's
 // double-buffered pivot column (registers route), or the matrix and pivots
-// (shared-memory route past 128); the solve's packed triangle
-__host__ __device__ inline int chol_factor_words(int n, int tw) {
-  return n <= tile_max_n(8) ? n + colbuf_words(tw) : n * odd_stride(n) + n;
+// (shared-memory route); the solve's packed triangle
+__host__ __device__ inline int chol_factor_words(int n, int tw, int itemsize) {
+  return n <= chol_tile_max_n(8, itemsize) ? n + 2 * chol_tile_max_n(tw, itemsize) : n * odd_stride(n) + n;
 }
 __host__ __device__ inline int chol_solve_words(int n) { return solve_words<CholDiag>(n); }
 
@@ -89,19 +108,19 @@ inline int chol_per_block(int n, int k, int itemsize, int tw) {
 }
 
 inline size_t chol_smem_bytes_of(int n, int k, int itemsize, int tw) {
-  const int words = k == 0 ? chol_factor_words(n, tw) : chol_solve_words(n);
+  const int words = k == 0 ? chol_factor_words(n, tw, itemsize) : chol_solve_words(n);
   return size_t(chol_per_block(n, k, itemsize, tw)) * words * size_t(itemsize);
 }
 
 // Whether teams of tw warps take the shape: the factor on a team whose
-// register tiles hold n (eight warps also past 128, in shared memory); the
+// register tiles hold n (eight warps also past them, in shared memory); the
 // solve on one warp at k = 1 and two for k > 1, n <= 256; everything in one
 // block's shared memory. (Solve teams of four and eight warps were slower
 // than two at every shape timed on an H100, and are not built.)
 inline bool chol_team_takes(int n, int k, int itemsize, int tw) {
   if (n < 1 || k < 0) return false;
   if (k == 0) {
-    if (!(tw == 1 || tw == 2 || tw == 8) || (n > tile_max_n(tw) && tw != 8)) return false;
+    if (!(tw == 1 || tw == 2 || tw == 8) || (n > chol_tile_max_n(tw, itemsize) && tw != 8)) return false;
   } else if (tw != (k == 1 ? 1 : 2) || n > kSolveMaxRows) {
     return false;
   }
@@ -132,11 +151,12 @@ __device__ inline int first_bad_pivot(P diag, int n, int lane) {
 
 // Registers the launch bounds allow a thread of each factor instantiation:
 // resident blocks per SM at least (f32 / f64), so that the tiles fit without
-// spilling at the sizes each instantiation serves.
+// spilling at the sizes each instantiation serves (eight warps past 128 rows
+// in f32: two blocks, 128 registers a thread, as K2's at 176).
 __host__ __device__ constexpr int chol_factor_min_blocks(int itemsize, int tw, int rx) {
   return tw == 1 ? (rx <= 3 ? (itemsize == 4 ? 24 : 16) : (itemsize == 4 ? 12 : 6))  // blocks of two warps
        : tw == 2 ? (rx <= 4 ? (itemsize == 4 ? 16 : 8) : (itemsize == 4 ? 8 : 4))
-                 : (rx <= 2 ? 4 : (rx <= 4 ? 2 : 1));
+                 : (rx <= 2 ? 4 : (rx <= 4 ? 2 : (rx <= 8 ? 1 : 2)));
 }
 
 // One instance per team of TW warps (threadIdx.x), two teams per block for
@@ -149,7 +169,7 @@ chol_factor_team_kernel(const T* __restrict__ H, T* __restrict__ Lout, int B, in
   constexpr int kY = G::kY, kX = G::kX, RY = RX * kX / kY;
   const int inst = blockIdx.x * blockDim.y + threadIdx.y;
   if (inst >= B) return;  // a whole team: blocks of several teams hold one-warp teams only
-  const int base = threadIdx.y * chol_factor_words(n, TW);
+  const int base = threadIdx.y * chol_factor_words(n, TW, sizeof(T));
   const SPtr<T> diag{base}, colbuf{base + n};
   const int tx = threadIdx.x % kX, ty = threadIdx.x / kX, lane = threadIdx.x & 31;
   const T* Hg = H + size_t(inst) * n * n;
@@ -192,7 +212,8 @@ chol_factor_team_kernel(const T* __restrict__ H, T* __restrict__ Lout, int B, in
   if (threadIdx.x == 0) DK_PROF_ADD(kProfInstances, 1);
 }
 
-// Past 128 rows: one block of eight warps per instance, the matrix in shared memory.
+// Past the register tiles (f32 n > 176, f64 n > 128): one block of eight warps per instance, the matrix in
+// shared memory.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 chol_factor_smem_kernel(const T* __restrict__ H, T* __restrict__ Lout, int /*B: one block each*/, int n) {
@@ -225,22 +246,23 @@ chol_factor_smem_kernel(const T* __restrict__ H, T* __restrict__ Lout, int /*B: 
 // ---- launchers -----------------------------------------------------------------
 
 // f(kernel, block) with the factor's instantiation for (n, tw): the smallest
-// of the team's covers that holds n, or the shared-memory kernel past 128 rows
+// of the team's covers that holds n, or the shared-memory kernel past them
 template <typename T, int TW, int kIdx = 0, class F>
 int with_cover(int n, int per, F&& f) {
-  using G = TileGrid<TW>;
-  if constexpr (kIdx >= G::kNumCovers) {
+  using C = CholCovers<T, TW>;
+  if constexpr (kIdx >= C::kNum) {
     return int(cudaErrorInvalidValue);
   } else {
-    constexpr int cover = G::kCovers[kIdx];
-    if (n <= cover) return f(chol_factor_team_kernel<T, TW, cover / G::kX>, dim3(32 * TW, per));
+    constexpr int cover = C::kCovers[kIdx];
+    static_assert(cover % TileGrid<TW>::kX == 0 && cover % TileGrid<TW>::kY == 0, "whole tiles both ways");
+    if (n <= cover) return f(chol_factor_team_kernel<T, TW, cover / TileGrid<TW>::kX>, dim3(32 * TW, per));
     return with_cover<T, TW, kIdx + 1>(n, per, f);
   }
 }
 
 template <typename T, class F>
 int with_factor_kernel(int n, int tw, int per, F&& f) {
-  if (n > tile_max_n(8)) return f(chol_factor_smem_kernel<T>, dim3(kThreads));
+  if (n > chol_tile_max_n(8, sizeof(T))) return f(chol_factor_smem_kernel<T>, dim3(kThreads));
   return with_team(tw, [&](auto tc) { return with_cover<T, decltype(tc)::value>(n, per, f); });
 }
 

@@ -1,8 +1,8 @@
 // Dense building blocks shared by the kernels of this package: Cholesky / LDL'
 // factorisations and triangular substitutions on a matrix held in shared
 // memory, plus warp reductions. One thread block works on one problem
-// instance: kThreads threads in K7 and in K2 / K4 past their register tiles; a team of 1,
-// 2 or 8 warps in K1, K2, K4 and K6 (Team below), whose factorisation runs on
+// instance: kThreads threads in K2 / K4 past their register tiles; a team of 1,
+// 2 or 8 warps in K1, K2, K4, K6 and K7 (Team below), whose factorisation runs on
 // the team's own thread grid (K2 and K4 pack two one-warp teams into a block).
 //
 // Two scopes: a factorisation has O(n^2) independent updates per step and is
@@ -171,7 +171,7 @@ struct Team {
   }
 };
 
-// the team sizes the team kernels (K1, K4, K6) are built for: four warps would hold
+// the team sizes the team kernels (K1, K4, K6, K7) are built for: four warps would hold
 // the same 64 rows as two, and were slower than two at every layout of K6 timed
 constexpr int kTeams[] = {1, 2, 8};
 
@@ -225,12 +225,6 @@ template <> struct TileGrid<8> { static constexpr int kY = 16, kX = 16, kNumCove
 // double-buffered pivot column
 __host__ __device__ constexpr int tile_max_n(int tw) { return tw == 1 ? 40 : (tw == 8 ? 128 : 64); }
 __host__ __device__ constexpr int colbuf_words(int tw) { return 2 * tile_max_n(tw); }
-
-constexpr int kTileGrid = 16;  // the 256-thread grid of K7
-static_assert(kTileGrid * kTileGrid == kThreads, "the tile map needs a 16 x 16 thread grid");
-constexpr int kMaxTileRows = 8;                                 // n <= 128
-constexpr int kColbufWords = 2 * kTileGrid * kMaxTileRows;      // double-buffered pivot column
-static_assert(kColbufWords == colbuf_words(8), "the 256-thread grid is the team of eight warps");
 
 // Calls f(std::integral_constant<int, RX>) with the smallest of
 // TileGrid<TW>::kCovers that holds n rows (RX = cover / kX column tiles, RY =
@@ -453,9 +447,9 @@ __device__ __forceinline__ void warp_backward_sub_regs(PL L, Off off, int n, T (
   }
 }
 
-// The one-right-hand-side forms on a strided L (K1, and K6 / K7 through the
-// forms below): x <- L^-1 x and x <- L'^-1 x, lane l holding entry r * 32 + l
-// in xr[r]. L and piv are plain pointers or SPtr.
+// The one-right-hand-side forms on a strided L (K1, K6 and K7): x <- L^-1 x
+// and x <- L'^-1 x, lane l holding entry r * 32 + l in xr[r]. L and piv are
+// plain pointers, SPtr or (unit diagonal) nullptr.
 template <typename T, int kRows, typename PL, typename PP>
 __device__ __forceinline__ void warp_forward_sub_regs(PL L, int ld, int n, T (&xr)[kRows], PP piv, int lane) {
   T x[1][kRows];
@@ -474,60 +468,6 @@ __device__ __forceinline__ void warp_backward_sub_regs(PL L, int ld, int n, T (&
   warp_backward_sub_regs<T, kRows, 1>(L, StridedRows{ld}, n, x, piv, lane);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) xr[r] = x[0][r];
-}
-
-// x <- L^-1 x for n <= 32 kRows, x in memory (entries xs apart).
-template <typename T, int kRows>
-__device__ __noinline__ void warp_forward_sub_rows(const T* __restrict__ L, int ld, int n, T* x, int xs,
-                                                   const T* __restrict__ piv, int lane) {
-  T xr[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = r * 32 + lane;
-    xr[r] = i < n ? x[i * xs] : T(0);
-  }
-  warp_forward_sub_regs(L, ld, n, xr, piv, lane);
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = r * 32 + lane;
-    if (i < n) x[i * xs] = xr[r];
-  }
-  __syncwarp();
-}
-
-// x <- L'^-1 x for n <= 32 kRows, x in memory.
-template <typename T, int kRows>
-__device__ __noinline__ void warp_backward_sub_rows(const T* __restrict__ L, int ld, int n, T* x, int xs,
-                                                    const T* __restrict__ piv, int lane) {
-  T xr[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = r * 32 + lane;
-    xr[r] = i < n ? x[i * xs] : T(0);
-  }
-  warp_backward_sub_regs(L, ld, n, xr, piv, lane);
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = r * 32 + lane;
-    if (i < n) x[i * xs] = xr[r];
-  }
-  __syncwarp();
-}
-
-constexpr int kMaxSubstitutionRows = 256;  // 32 lanes x 8 register entries
-
-template <typename T>
-__device__ inline void warp_forward_sub(const T* L, int ld, int n, T* x, int xs, const T* piv, int lane) {
-  if (n <= 64) warp_forward_sub_rows<T, 2>(L, ld, n, x, xs, piv, lane);
-  else if (n <= 128) warp_forward_sub_rows<T, 4>(L, ld, n, x, xs, piv, lane);
-  else warp_forward_sub_rows<T, 8>(L, ld, n, x, xs, piv, lane);
-}
-
-template <typename T>
-__device__ inline void warp_backward_sub(const T* L, int ld, int n, T* x, int xs, const T* piv, int lane) {
-  if (n <= 64) warp_backward_sub_rows<T, 2>(L, ld, n, x, xs, piv, lane);
-  else if (n <= 128) warp_backward_sub_rows<T, 4>(L, ld, n, x, xs, piv, lane);
-  else warp_backward_sub_rows<T, 8>(L, ld, n, x, xs, piv, lane);
 }
 
 }  // namespace dk

@@ -1,10 +1,11 @@
 // Pieces shared by the fused interior-point kernels (csrc/conic_pdip.cu, K6;
 // csrc/ns_pdip.cu, K7), generic over the solver's per-block state C (its
 // `Real` type, its `Team` (dense.cuh: the warps that solve one instance, a
-// whole thread block; K7's is eight warps, K6's one, two or eight) and
-// the fields each piece reads: the data AC, AE, c, bE, bC, the iterate x, yE,
-// yC, s, the residuals rd, rpE, rpC, the factor L (row stride ld) with D in
-// dvec, the scalar slots sc, nu_deg, and the sizes n, p, mC, N): the
+// whole thread block of one, two or eight warps) and the fields each piece
+// reads: the data AC, AE, c, bE, bC, the iterate x, yE, yC, s, the residuals
+// rd, rpE, rpC, the factor L (row stride ld) with D in dvec, the scalar slots
+// sc, nu_deg, and the sizes n, p, mC, N; the arrays are generic pointers in
+// K6 and SPtr indices in K7): the
 // residuals and the scale-relative metrics, the LDL' of K assembled in
 // register tiles on the team's thread grid from the solver's k_entry(c, i, k),
 // the LDL' solve on one warp, and a team-wide non-finite test. Every function
@@ -62,16 +63,40 @@ __device__ bool factor(const C& c) {
   return dispatch_grid<C::Team::kWarps>(c.N, [&](auto rx) { factor_tiled<C, decltype(rx)::value>(c); });
 }
 
-// x <- (L D L')^-1 x on warp 0
-template <class C>
-__device__ __noinline__ void ldl_solve_warp0(const C& c, typename C::Real* x) {
+// x <- (L D L')^-1 x by one warp, x in registers through both sweeps and the
+// division by D between them; L, D and x plain pointers or SPtr
+template <int kRows, class C, typename P>
+__device__ __noinline__ void warp_ldl_solve_rows(const C& c, P x, int lane) {
   using T = typename C::Real;
+  const int N = c.N;
+  T xr[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = r * 32 + lane;
+    xr[r] = i < N ? x[i] : T(0);
+  }
+  warp_forward_sub_regs(c.L, c.ld, N, xr, nullptr, lane);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = r * 32 + lane;
+    if (i < N) xr[r] /= c.dvec[i];
+  }
+  warp_backward_sub_regs(c.L, c.ld, N, xr, nullptr, lane);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = r * 32 + lane;
+    if (i < N) x[i] = xr[r];
+  }
+  __syncwarp();
+}
+
+// x <- (L D L')^-1 x on warp 0 (N <= 128)
+template <class C, typename P>
+__device__ __noinline__ void ldl_solve_warp0(const C& c, P x) {
   const int lane = threadIdx.x & 31;
   if (threadIdx.x < 32) {
-    warp_forward_sub<T>(c.L, c.ld, c.N, x, 1, nullptr, lane);
-    for (int i = lane; i < c.N; i += 32) x[i] /= c.dvec[i];
-    __syncwarp();
-    warp_backward_sub<T>(c.L, c.ld, c.N, x, 1, nullptr, lane);
+    if (c.N <= 64) warp_ldl_solve_rows<2>(c, x, lane);
+    else warp_ldl_solve_rows<4>(c, x, lane);
   }
   C::Team::sync();
 }
@@ -191,8 +216,8 @@ __device__ Metrics<typename C::Real> metrics(const C& c) {
 }
 
 // true in every thread of the team if any entry of the vectors is NaN or infinite
-template <class Tm, typename T>
-__device__ inline bool any_nonfinite(const T* a, int na, const T* b, int nb_, const T* d, int nd, const T* e, int ne) {
+template <class Tm, typename P>
+__device__ inline bool any_nonfinite(P a, int na, P b, int nb_, P d, int nd, P e, int ne) {
   int bad = 0;
   for (int i = threadIdx.x; i < na; i += Tm::kThreads) bad |= !isfinite(a[i]);
   for (int i = threadIdx.x; i < nb_; i += Tm::kThreads) bad |= !isfinite(b[i]);

@@ -2,12 +2,12 @@
 // dual-scaling Mehrotra predictor-corrector loop for
 //     min c'x  s.t.  AE x = bE,  AC x + s = bC,  s in K = nonneg(l) x soc(d_1..) x ns_1 x ...
 // with each ns block an exp, dual_exp, pow(alpha) or dual_pow(alpha) cone of
-// dimension 3, in one kernel, one thread block per instance.
+// dimension 3, in one kernel, one instance per team of TW = 1, 2 or 8 warps.
 //
 // Replaces diffopt_tpu/ops/pallas/ns_pdip.py::solve_tile_fused_ns (kernel body
 // _kernel). The TPU kernel puts 128 instances along the vector lanes and
 // freezes finished lanes by select; here every per-lane quantity (done,
-// stalled, dead, finite, errb, itdone, the step lengths) is a per-block scalar
+// stalled, dead, finite, errb, itdone, the step lengths) is a per-team scalar
 // and a frozen instance leaves its loop: a frozen lane keeps its state, so the
 // result is the same. The arithmetic, constants and exit rules are the
 // reference's: closed-form barrier gradients and Hessians per ns block with a
@@ -28,7 +28,7 @@
 // once; a body does the LDL' of N = n + p + mC, four direction solves, three
 // Jacobi sweeps' worth of 3x3 rotations per ns block and 34 line-search
 // candidates, each a pass over the cone with a log or two per ns block. The
-// critical path is sequential (N elimination steps with one block barrier
+// critical path is sequential (N elimination steps with one team barrier
 // each, 2 N substitution steps per solve on one warp), so everything stays in
 // shared memory or registers: K is assembled straight into dense.cuh's
 // register tiles from the per-block data (the -Hbar^-1 block never stored
@@ -44,10 +44,36 @@
 // test one way often enough to cost 0.9 bodies on average on a dual_exp
 // family against the plain version's separate operations.
 //
+// Teams, as K6 (csrc/conic_pdip.cu). At the sizes users send (the entropy
+// family: N = 16) nearly every phase runs on one thread per block or row, one
+// warp's lanes or warp 0 alone; an instance on eight warps left seven waiting
+// at each barrier, and their registers held the SM to two or three instances
+// where shared memory holds dozens (4 KB an instance at N = 16 in f32). So
+// one instance runs on the fewest warps whose register tiles hold N, ONE TEAM
+// PER THREAD BLOCK (blockDim = 32 TW; the block barrier is the team's, and
+// for one warp a __syncwarp), and the SM holds as many instances as registers
+// and shared memory allow, each one's chain overlapping the others'. Each
+// (type, team) is its own instantiation with its own __launch_bounds__
+// (ns_min_blocks); the launch rule (ns_team, mirrored by
+// ops/cuda/ns_pdip.py::team_for) picks the smallest team that takes the
+// layout (one warp to 40 rows, two to 64, eight to 128). A team that does not
+// take a layout is refused, never replaced by another. Every team does the
+// same operations in the same order (the per-row loops stride by the team's
+// threads, the mu_aff sum is one warp's, the line searches choose in grid
+// order), so every team gives the same bits.
+//
+// Shared memory by index: the team's arrays, the per-block tables and the ns
+// blocks' kinds and exponents are SPtr (dense.cuh) into the dynamic shared
+// memory, so every access to them is an LDS / STS with a 32-bit address (a
+// generic pointer costs LD / ST with 64-bit address arithmetic: K1 lost 39%
+// of its time to it). The table of those indices (NsIpm) lives in static
+// shared memory.
+//
 // Envelope: N = n + p + mC <= 128 (register tiles), at most kMaxSoc soc and
-// kMaxNs ns blocks, ns_smem_bytes(...) <= 227 KB less the static pointer
-// table.
+// kMaxNs ns blocks, ns_smem_bytes(...) <= 227 KB less the static table for
+// the team that takes it.
 #include "ipm.cuh"
+#include "prof.cuh"
 
 namespace dk {
 
@@ -60,6 +86,11 @@ enum NsBlockKind { kNonneg = 0, kSoc = 1, kNs = 2 };
 enum NsKind { kExp = 0, kDualExp = 1, kPow = 2, kDualPow = 3 };
 // scalar slots in shared memory, after the metrics' IpmSlot: the line-search candidates' results
 enum NsSlot { sCand = 32 };
+// counters of the phase probes (prof.cuh; tools/k7_phase_cycles.py names them in this order)
+enum NsProf {
+  kProfMetrics, kProfHbar, kProfFactor, kProfSolveAff, kProfSearchAff, kProfSolvePred, kProfSearchPred,
+  kProfSolveCent, kProfSearchCent, kProfUpdate, kProfInit, kProfExit, kProfTotal = 13, kProfBodies = 14
+};
 
 struct NsLayout {
   int n, p, l, nsoc, nns;
@@ -78,16 +109,19 @@ __host__ __device__ inline int ns_mC(const NsLayout& L) {
 
 __host__ __device__ inline int ns_nblocks(const NsLayout& L) { return (L.l ? 1 : 0) + L.nsoc + L.nns; }
 
+// the ints: per cone block its kind, offset, dimension and index among its kind; per cone row its block
+// and its index in it; per ns block its kind
 __host__ __device__ inline size_t ns_int_bytes(const NsLayout& L) {
-  const size_t ints = 4 * size_t(ns_nblocks(L)) + 2 * size_t(ns_mC(L));
+  const size_t ints = 4 * size_t(ns_nblocks(L)) + 2 * size_t(ns_mC(L)) + size_t(L.nns);
   return (ints * 4 + 15) / 16 * 16;
 }
 
-// words of the working type (mirrored by ops/cuda/ns_pdip.py::smem_bytes)
-__host__ __device__ inline size_t ns_words(const NsLayout& L) {
+// words of the working type for a team of tw warps (mirrored by ops/cuda/ns_pdip.py::smem_bytes): the
+// team's pivot column depends on tw, the rest is the instance's
+__host__ __device__ inline size_t ns_words(const NsLayout& L, int tw) {
   const size_t n = L.n, p = L.p, mC = ns_mC(L), N = n + p + mC;
   size_t w = mC * n + p * n + n + p + mC + 7 * n + 7 * p + 17 * mC + 3 * N + N * odd_stride(int(N));
-  w += size_t(L.nsoc) + 18 * size_t(L.nns) + kColbufWords + kNsSlots;
+  w += size_t(L.nsoc) + 18 * size_t(L.nns) + colbuf_words(tw) + kNsSlots;
   return w;
 }
 
@@ -95,32 +129,38 @@ __host__ __device__ inline size_t ns_words(const NsLayout& L) {
 // the reference forms them from its Python floats)
 __host__ __device__ inline size_t ns_double_bytes(const NsLayout& L) { return (size_t(L.nns) * 8 + 15) / 16 * 16; }
 
-__host__ __device__ inline size_t ns_smem_bytes(const NsLayout& L, int itemsize) {
-  return ns_int_bytes(L) + ns_double_bytes(L) + ns_words(L) * size_t(itemsize);
+__host__ __device__ inline size_t ns_smem_bytes(const NsLayout& L, int itemsize, int tw) {
+  return ns_int_bytes(L) + ns_double_bytes(L) + ns_words(L, tw) * size_t(itemsize);
 }
 
-template <typename T>
+// The team's table: sizes, scalars, and its arrays as SPtr indices into the dynamic shared memory (ints
+// first, then the exponents in doubles, then the words of the working type)
+template <typename T, int TW>
 struct NsIpm {
   using Real = T;
-  using Team = dk::Team<kWarps>;  // one instance per block of eight warps
+  using Team = dk::Team<TW>;
   int n, p, mC, N, ld, nb, nsoc, nns, l;
   T reg, eps, nu_deg, beta;
-  const int *bkind, *boff, *bdim, *bidx;  // per cone block: nonneg (if any), socs, ns blocks
-  const int *rblk, *rloc;                 // per cone row: its block and its index in it
-  const int* nskind;                      // per ns block (in the layout)
-  const double* nsalpha;
-  T *AC, *AE, *c, *bE, *bC;
-  T *x, *xb, *rd, *dx, *tdx, *cx, *r1;    // n words each
-  T *yE, *yEb, *rpE, *dyE, *tdyE, *cyE, *r2;  // p words each
-  T *yC, *s, *yCb, *sb, *rpC, *gradF, *g, *dyC, *ds, *dyCa, *dsa, *cyC, *cs, *r3, *r4, *t1, *t2;  // mC each
-  T *rhs, *sol, *dvec;                    // N words each
-  T *L;                                   // N x ld, the LDL' factor (strict lower triangle)
-  T *sdet;                                // per soc block: its floored Jordan determinant
-  T *nsH;                                 // per ns block: mu hess F (9 words), then hess F^-1 / mu (9)
-  T *colbuf, *sc;
+  SPtr<int> bkind, boff, bdim, bidx;  // per cone block: nonneg (if any), socs, ns blocks
+  SPtr<int> rblk, rloc;               // per cone row: its block and its index in it
+  SPtr<int> nskind;                   // per ns block (in the layout)
+  SPtr<double> nsalpha;
+  SPtr<T> AC, AE, c, bE, bC;
+  SPtr<T> x, xb, rd, dx, tdx, cx, r1;        // n words each
+  SPtr<T> yE, yEb, rpE, dyE, tdyE, cyE, r2;  // p words each
+  SPtr<T> yC, s, yCb, sb, rpC, gradF, g, dyC, ds, dyCa, dsa, cyC, cs, r3, r4, t1, t2;  // mC each
+  SPtr<T> rhs, sol, dvec;             // N words each
+  SPtr<T> L;                          // N x ld, the LDL' factor (strict lower triangle)
+  SPtr<T> sdet;                       // per soc block: its floored Jordan determinant
+  SPtr<T> nsH;                        // per ns block: mu hess F (9 words), then hess F^-1 / mu (9)
+  SPtr<T> colbuf, sc;
   T pred[kPredGrid];
-  T mu;                                   // of the current body
+  T mu;                               // of the current body
 };
+
+// Room for the kernel's static shared memory (its table NsIpm<T, TW>), mirrored by ops/cuda/ns_pdip.py
+constexpr size_t kNsStatic = 1024;
+static_assert(sizeof(NsIpm<double, 8>) <= kNsStatic, "the table outgrew its room");
 
 __device__ inline int dual_kind(int k) { return k ^ 1; }  // exp <-> dual_exp, pow <-> dual_pow
 
@@ -277,12 +317,12 @@ __device__ inline T soc_det_of(F f, int dim, T eps) {
 }
 
 
-// ---- the block's phases (called by every thread; each ends in __syncthreads) --
+// ---- the team's phases (called by every thread of the team; each ends in its barrier) --
 
 // per-block entries of Hbar^-1 (inverse) or Hbar (0 across blocks); the nonneg and soc entries are
 // computed from s as the reference forms them, unscaled, then over or times mu
-template <typename T>
-__device__ T hbar_entry(const NsIpm<T>& c, int i, int k, bool inverse) {
+template <typename T, int TW>
+__device__ T hbar_entry(const NsIpm<T, TW>& c, int i, int k, bool inverse) {
   const int b = c.rblk[i];
   if (c.rblk[k] != b) return T(0);
   const int kind = c.bkind[b];
@@ -304,9 +344,9 @@ __device__ T hbar_entry(const NsIpm<T>& c, int i, int k, bool inverse) {
 
 // out <- Hbar^-1 u (inverse) or Hbar u, one thread per row, over the row's block in order; out distinct
 // from u
-template <typename T>
-__device__ __noinline__ void hbar_apply(const NsIpm<T>& c, const T* __restrict__ u, T* __restrict__ out, bool inverse) {
-  for (int i = threadIdx.x; i < c.mC; i += kThreads) {
+template <typename T, int TW>
+__device__ __noinline__ void hbar_apply(const NsIpm<T, TW>& c, SPtr<T> u, SPtr<T> out, bool inverse) {
+  for (int i = threadIdx.x; i < c.mC; i += Team<TW>::kThreads) {
     const int b = c.rblk[i], off = c.boff[b], dim = c.bdim[b];
     T acc = T(0);
     if (c.bkind[b] == kNonneg) acc = hbar_entry(c, i, i, inverse) * u[i];
@@ -314,13 +354,13 @@ __device__ __noinline__ void hbar_apply(const NsIpm<T>& c, const T* __restrict__
       for (int k = off; k < off + dim; ++k) acc += hbar_entry(c, i, k, inverse) * u[k];
     out[i] = acc;
   }
-  __syncthreads();
+  Team<TW>::sync();
 }
 
 // grad F(s) blockwise: -1/s per nonneg row, -2 Js / det per soc block, the closed forms per ns block
-template <typename T>
-__device__ __noinline__ void grad_barrier(const NsIpm<T>& c, const T* __restrict__ s, T* __restrict__ out) {
-  for (int b = threadIdx.x; b < c.nb; b += kThreads) {
+template <typename T, int TW>
+__device__ __noinline__ void grad_barrier(const NsIpm<T, TW>& c, SPtr<T> s, SPtr<T> out) {
+  for (int b = threadIdx.x; b < c.nb; b += Team<TW>::kThreads) {
     const int off = c.boff[b], dim = c.bdim[b];
     if (c.bkind[b] == kNonneg) {
       for (int i = 0; i < dim; ++i) out[off + i] = T(-1) / s[off + i];
@@ -329,30 +369,34 @@ __device__ __noinline__ void grad_barrier(const NsIpm<T>& c, const T* __restrict
       for (int i = 0; i < dim; ++i) out[off + i] = (T(-2) * (i == 0 ? s[off] : -s[off + i])) / det;
     } else {
       const int k = c.bidx[b];
-      ns_grad_hess<T>(c.nskind[k], c.nsalpha[k], s + off, c.eps, out + off, nullptr);
+      const T u[3] = {s[off], s[off + 1], s[off + 2]};
+      T gr[3];
+      ns_grad_hess<T>(c.nskind[k], c.nsalpha[k], u, c.eps, gr, nullptr);
+      for (int i = 0; i < 3; ++i) out[off + i] = gr[i];
     }
   }
-  __syncthreads();
+  Team<TW>::sync();
 }
 
 // the per-block data of Hbar at s: the floored soc determinants; per ns block mu hess F and the
 // inverse of hess F by floored Jacobi eigendecomposition, over mu (c.mu is set)
-template <typename T>
-__device__ __noinline__ void hbar_data(const NsIpm<T>& c, T eps_w) {
-  for (int b = threadIdx.x; b < c.nb; b += kThreads) {
+template <typename T, int TW>
+__device__ __noinline__ void hbar_data(const NsIpm<T, TW>& c, T eps_w) {
+  for (int b = threadIdx.x; b < c.nb; b += Team<TW>::kThreads) {
     const int off = c.boff[b], dim = c.bdim[b];
     if (c.bkind[b] == kSoc) {
       c.sdet[c.bidx[b]] = soc_det_of<T>([&](int i) { return c.s[off + i]; }, dim, c.eps);
     } else if (c.bkind[b] == kNs) {
       const int k = c.bidx[b];
+      const T u[3] = {c.s[off], c.s[off + 1], c.s[off + 2]};
       T gr[3], H[3][3], A[3][3], V[3][3], w[3];
-      ns_grad_hess<T>(c.nskind[k], c.nsalpha[k], c.s + off, c.eps, gr, H);
+      ns_grad_hess<T>(c.nskind[k], c.nsalpha[k], u, c.eps, gr, H);
       for (int i = 0; i < 3; ++i)
         for (int j = 0; j < 3; ++j) A[i][j] = H[i][j];
       jacobi3(A, V, w);
       const T mx = nan_max(nan_max(w[0], w[1]), w[2]);
       for (int i = 0; i < 3; ++i) w[i] = nan_max(w[i], eps_w * mx);
-      T* out = c.nsH + 18 * k;
+      const SPtr<T> out = c.nsH + 18 * k;
       for (int i = 0; i < 3; ++i)
         for (int j = 0; j < 3; ++j) {
           T acc = T(0);
@@ -362,12 +406,12 @@ __device__ __noinline__ void hbar_data(const NsIpm<T>& c, T eps_w) {
         }
     }
   }
-  __syncthreads();
+  Team<TW>::sync();
 }
 
 // entry (i, k) of K = [[-Hbar^-1, AC, 0], [AC', reg I, AE'], [0, AE, -reg I]]
-template <typename T>
-__device__ T k_entry(const NsIpm<T>& c, int i, int k) {
+template <typename T, int TW>
+__device__ T k_entry(const NsIpm<T, TW>& c, int i, int k) {
   const int mC = c.mC, n = c.n;
   if (i < mC) {
     if (k < mC) return -hbar_entry(c, i, k, true);
@@ -385,43 +429,46 @@ __device__ T k_entry(const NsIpm<T>& c, int i, int k) {
   return k == i ? -c.reg : T(0);
 }
 
-// one Newton solve without refinement: rhs = [-rpC + Hbar^-1 g, -rd, -rpE] (a null residual reads as
-// zero), then ds = -Hbar^-1 (g + dyC)
-template <typename T>
-__device__ __noinline__ void solve_once(const NsIpm<T>& c, const T* rd, const T* rpE, const T* rpC, const T* g,
-                                        T* dx, T* dyE, T* dyC, T* ds) {
+// one Newton solve without refinement: rhs = [-rpC + Hbar^-1 g, -rd, -rpE] (R = std::nullptr_t: the
+// residuals read as zero), then ds = -Hbar^-1 (g + dyC)
+template <typename T, int TW, typename R>
+__device__ __noinline__ void solve_once(const NsIpm<T, TW>& c, R rd, R rpE, R rpC, SPtr<T> g, SPtr<T> dx,
+                                        SPtr<T> dyE, SPtr<T> dyC, SPtr<T> ds) {
+  constexpr bool kZero = std::is_same_v<R, std::nullptr_t>;
   const int mC = c.mC, n = c.n, N = c.N;
   hbar_apply(c, g, c.t1, true);
-  for (int i = threadIdx.x; i < N; i += kThreads) {
+  for (int i = threadIdx.x; i < N; i += Team<TW>::kThreads) {
     T v;
-    if (i < mC) v = (rpC ? -rpC[i] : T(0)) + c.t1[i];
-    else if (i < mC + n) v = rd ? -rd[i - mC] : T(0);
-    else v = rpE ? -rpE[i - mC - n] : T(0);
+    if constexpr (kZero) v = i < mC ? T(0) + c.t1[i] : T(0);
+    else if (i < mC) v = -rpC[i] + c.t1[i];
+    else if (i < mC + n) v = -rd[i - mC];
+    else v = -rpE[i - mC - n];
     c.sol[i] = v;
   }
-  __syncthreads();
+  Team<TW>::sync();
   ldl_solve_warp0(c, c.sol);
-  for (int i = threadIdx.x; i < N; i += kThreads) {
+  for (int i = threadIdx.x; i < N; i += Team<TW>::kThreads) {
     const T v = c.sol[i];
     if (i < mC) { dyC[i] = v; c.t2[i] = g[i] + v; }
     else if (i < mC + n) dx[i - mC] = v;
     else dyE[i - mC - n] = v;
   }
-  __syncthreads();
+  Team<TW>::sync();
   hbar_apply(c, c.t2, c.t1, true);
-  for (int i = threadIdx.x; i < mC; i += kThreads) ds[i] = -c.t1[i];
-  __syncthreads();
+  for (int i = threadIdx.x; i < mC; i += Team<TW>::kThreads) ds[i] = -c.t1[i];
+  Team<TW>::sync();
 }
 
 // the predictor's direction: one solve, then one refinement pass against the unsquared block system
 // r1 = -rd - (AC'dyC + AE'dyE), r2 = -rpE - AE dx, r3 = -rpC - (AC dx + ds), r4 = -g - (dyC + Hbar ds),
 // whose correction solves with (-r1, -r2, -r3, -r4) in place of (rd, rpE, rpC, g)
-template <typename T>
-__device__ __noinline__ void solve_dir(const NsIpm<T>& c, const T* g, T* dx, T* dyE, T* dyC, T* ds) {
+template <typename T, int TW>
+__device__ __noinline__ void solve_dir(const NsIpm<T, TW>& c, SPtr<T> g, SPtr<T> dx, SPtr<T> dyE, SPtr<T> dyC,
+                                       SPtr<T> ds) {
   const int mC = c.mC, n = c.n, p = c.p;
   solve_once(c, c.rd, c.rpE, c.rpC, g, dx, dyE, dyC, ds);
   hbar_apply(c, ds, c.t1, false);
-  for (int r = threadIdx.x; r < n + p + mC; r += kThreads) {
+  for (int r = threadIdx.x; r < n + p + mC; r += Team<TW>::kThreads) {
     if (r < n) {
       T a = T(0);
       for (int i = 0; i < mC; ++i) a += c.AC[i * n + r] * dyC[i];
@@ -441,20 +488,20 @@ __device__ __noinline__ void solve_dir(const NsIpm<T>& c, const T* g, T* dx, T* 
       c.r4[i] = -(-g[i] - (dyC[i] + c.t1[i]));
     }
   }
-  __syncthreads();
+  Team<TW>::sync();
   solve_once(c, c.r1, c.r2, c.r3, c.r4, c.cx, c.cyE, c.cyC, c.cs);
-  for (int j = threadIdx.x; j < n; j += kThreads) dx[j] += c.cx[j];
-  for (int k = threadIdx.x; k < p; k += kThreads) dyE[k] += c.cyE[k];
-  for (int i = threadIdx.x; i < mC; i += kThreads) { dyC[i] += c.cyC[i]; ds[i] += c.cs[i]; }
-  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += Team<TW>::kThreads) dx[j] += c.cx[j];
+  for (int k = threadIdx.x; k < p; k += Team<TW>::kThreads) dyE[k] += c.cyE[k];
+  for (int i = threadIdx.x; i < mC; i += Team<TW>::kThreads) { dyC[i] += c.cyC[i]; ds[i] += c.cs[i]; }
+  Team<TW>::sync();
 }
 
 // one line-search candidate (s0 + a ds, y0 + a dy), evaluated by one thread over the whole cone.
 // mode 0: 1 if strictly interior to K x K* and finite, else 0; mode 1: that, mu > 0 and prox^2 <=
 // (beta mu)^2; mode 2: prox^2 / max(mu^2, 1e-30) where mode 1's first two hold, else +inf
-template <typename T>
-__device__ __noinline__ T candidate(const NsIpm<T>& c, const T* __restrict__ s0, const T* __restrict__ y0,
-                                    const T* __restrict__ ds, const T* __restrict__ dy, T a, int mode) {
+template <typename T, int TW>
+__device__ __noinline__ T candidate(const NsIpm<T, TW>& c, SPtr<T> s0, SPtr<T> y0, SPtr<T> ds, SPtr<T> dy, T a,
+                                    int mode) {
   const int mC = c.mC;
   auto sn = [&](int i) { return s0[i] + a * ds[i]; };
   auto yn = [&](int i) { return y0[i] + a * dy[i]; };
@@ -545,14 +592,15 @@ __device__ __noinline__ T candidate(const NsIpm<T>& c, const T* __restrict__ s0,
 // a line search over static candidates, one per lane of warp 0: mode 0 (the affine probe: every second
 // predictor step) and mode 1 (the predictor: all 18) return the largest step whose candidate passes,
 // mode 2 (the centering grid) the step of least value, ties to the earliest, 0 if none is finite. The
-// same value in every thread.
-template <typename T>
-__device__ __noinline__ T line_search(const NsIpm<T>& c, const T* s0, const T* y0, const T* ds, const T* dy, int mode) {
+// same value in every thread of the team.
+template <typename T, int TW>
+__device__ __noinline__ T line_search(const NsIpm<T, TW>& c, SPtr<T> s0, SPtr<T> y0, SPtr<T> ds, SPtr<T> dy,
+                                      int mode) {
   const T cent[kCentGrid] = {T(1.0), T(0.6), T(0.35), T(0.2), T(0.1), T(0.05), T(0.02)};
   const int count = mode == 0 ? kPredGrid / 2 : (mode == 1 ? kPredGrid : kCentGrid);
   auto step = [&](int k) { return mode == 2 ? cent[k] : c.pred[mode == 0 ? 2 * k : k]; };
   if (threadIdx.x < count) c.sc[sCand + threadIdx.x] = candidate(c, s0, y0, ds, dy, step(threadIdx.x), mode);
-  __syncthreads();
+  Team<TW>::sync();
   T best = T(0), best_v = T(INFINITY);
   for (int k = 0; k < count; ++k) {
     const T v = c.sc[sCand + k];
@@ -563,50 +611,60 @@ __device__ __noinline__ T line_search(const NsIpm<T>& c, const T* s0, const T* y
       best_v = v;
     }
   }
-  __syncthreads();  // every thread has read the candidates
+  Team<TW>::sync();  // every thread has read the candidates
   return best;
 }
 
-// four resident blocks' worth of registers is too few for the tiled factorisation at 128 rows in
-// f64, so two blocks per SM is the floor
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+// Resident teams per SM that the registers must allow: one- and two-warp teams f32 24 / 12 (a thread
+// gets at most 80 registers), f64 16 / 8 (128); the eight-warp team keeps two blocks per SM (128
+// registers a thread), which its tiled factorisation at 128 rows in f64 needs. On an H100 the f32
+// entropy batch ran fastest at 24 (16, 20 and 32 were 3% slower), the f64 one 12% faster at 16 than
+// at 12 (8: 14% slower) with the pow and dual_exp batches within 2% (PERF.md).
+template <typename T, int TW>
+constexpr int ns_min_blocks() { return TW == 8 ? 2 : (sizeof(T) == 4 ? 24 : 16) / TW; }
+
+template <typename T, int TW>
+__global__ void __launch_bounds__(32 * TW, ns_min_blocks<T, TW>())
 ns_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __restrict__ bCg, const T* __restrict__ AEg,
           const T* __restrict__ ACg, T* __restrict__ x_out, T* __restrict__ yE_out, T* __restrict__ yC_out,
           T* __restrict__ s_out, int* __restrict__ it_out, T* __restrict__ pres_out, T* __restrict__ dres_out,
           T* __restrict__ gap_out, const NsLayout lay, int iters, T tol, T reg, T eps, T beta) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ NsIpm<T> cs;
+  constexpr int kTeamThreads = 32 * TW;
+  __shared__ NsIpm<T, TW> cs;
   const int tid = threadIdx.x;
   const size_t inst = blockIdx.x;
   const int n = lay.n, p = lay.p, l = lay.l, mC = ns_mC(lay), N = n + p + mC;
-  const int nb = ns_nblocks(lay);
-  int* ints = reinterpret_cast<int*>(smem_raw);
-  double* dbl = reinterpret_cast<double*>(smem_raw + ns_int_bytes(lay));
-  T* w = reinterpret_cast<T*>(smem_raw + ns_int_bytes(lay) + ns_double_bytes(lay));
-  auto take = [&w](size_t count) { T* r = w; w += count; return r; };
+  const int nb = ns_nblocks(lay), nns = lay.nns;
+  DK_PROF_START();
+#ifdef DK_PROFILE
+  const long long tstart_ = t0_;
+#endif
 
   if (tid == 0) {
-    NsIpm<T>& c = cs;
-    c.n = n; c.p = p; c.mC = mC; c.N = N; c.ld = odd_stride(N); c.nb = nb; c.nsoc = lay.nsoc; c.nns = lay.nns;
+    NsIpm<T, TW>& c = cs;
+    c.n = n; c.p = p; c.mC = mC; c.N = N; c.ld = odd_stride(N); c.nb = nb; c.nsoc = lay.nsoc; c.nns = nns;
     c.l = l; c.reg = reg; c.eps = eps; c.beta = beta;
-    const int deg = l + 2 * lay.nsoc + 3 * lay.nns;
+    const int deg = l + 2 * lay.nsoc + 3 * nns;
     c.nu_deg = T(deg > 1 ? deg : 1);
     for (int k = 0; k < kPredGrid; ++k) c.pred[k] = T(lay.pred[k]);
-    int* bk = ints; int* bo = bk + nb; int* bd = bo + nb; int* bx = bd + nb;
-    int* rb = bx + nb; int* rl = rb + mC;
-    c.bkind = bk; c.boff = bo; c.bdim = bd; c.bidx = bx; c.rblk = rb; c.rloc = rl;
+    int wi = 0;  // ints taken
+    auto take_int = [&wi](int count) { const SPtr<int> r{wi}; wi += count; return r; };
+    c.bkind = take_int(nb); c.boff = take_int(nb); c.bdim = take_int(nb); c.bidx = take_int(nb);
+    c.rblk = take_int(mC); c.rloc = take_int(mC); c.nskind = take_int(nns);
+    c.nsalpha = SPtr<double>{int(ns_int_bytes(lay) / sizeof(double))};
+    int w = int((ns_int_bytes(lay) + ns_double_bytes(lay)) / sizeof(T));  // words taken
+    auto take = [&w](int count) { const SPtr<T> r{w}; w += count; return r; };
     int b = 0, off = 0;
-    if (l) { bk[b] = kNonneg; bo[b] = 0; bd[b] = l; bx[b] = 0; ++b; off = l; }
+    if (l) { c.bkind[b] = kNonneg; c.boff[b] = 0; c.bdim[b] = l; c.bidx[b] = 0; ++b; off = l; }
     for (int k = 0; k < lay.nsoc; ++k, ++b) {
-      bk[b] = kSoc; bo[b] = off; bd[b] = lay.soc_dim[k]; bx[b] = k; off += lay.soc_dim[k];
+      c.bkind[b] = kSoc; c.boff[b] = off; c.bdim[b] = lay.soc_dim[k]; c.bidx[b] = k; off += lay.soc_dim[k];
     }
-    for (int k = 0; k < lay.nns; ++k, ++b) {
-      bk[b] = kNs; bo[b] = off; bd[b] = 3; bx[b] = k; off += 3;
+    for (int k = 0; k < nns; ++k, ++b) {
+      c.bkind[b] = kNs; c.boff[b] = off; c.bdim[b] = 3; c.bidx[b] = k; off += 3;
     }
     for (int bb = 0; bb < nb; ++bb)
-      for (int i = 0; i < bd[bb]; ++i) { rb[bo[bb] + i] = bb; rl[bo[bb] + i] = i; }
-    c.AC = take(size_t(mC) * n); c.AE = take(size_t(p) * n); c.c = take(n); c.bE = take(p); c.bC = take(mC);
+      for (int i = 0; i < c.bdim[bb]; ++i) { c.rblk[c.boff[bb] + i] = bb; c.rloc[c.boff[bb] + i] = i; }
+    c.AC = take(mC * n); c.AE = take(p * n); c.c = take(n); c.bE = take(p); c.bC = take(mC);
     c.x = take(n); c.xb = take(n); c.rd = take(n); c.dx = take(n); c.tdx = take(n); c.cx = take(n); c.r1 = take(n);
     c.yE = take(p); c.yEb = take(p); c.rpE = take(p); c.dyE = take(p); c.tdyE = take(p); c.cyE = take(p);
     c.r2 = take(p);
@@ -614,25 +672,21 @@ ns_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __restri
     c.g = take(mC); c.dyC = take(mC); c.ds = take(mC); c.dyCa = take(mC); c.dsa = take(mC); c.cyC = take(mC);
     c.cs = take(mC); c.r3 = take(mC); c.r4 = take(mC); c.t1 = take(mC); c.t2 = take(mC);
     c.rhs = take(N); c.sol = take(N); c.dvec = take(N);
-    c.L = take(size_t(N) * c.ld);
-    c.sdet = take(lay.nsoc); c.nsH = take(18 * size_t(lay.nns));
-    c.colbuf = take(kColbufWords); c.sc = take(kNsSlots);
+    c.L = take(N * c.ld);
+    c.sdet = take(lay.nsoc); c.nsH = take(18 * nns);
+    c.colbuf = take(colbuf_words(TW)); c.sc = take(kNsSlots);
     c.mu = T(1);
   }
-  __syncthreads();
+  Team<TW>::sync();
+  const NsIpm<T, TW>& c = cs;
   // the ns blocks' kinds and exponents, copied out of the parameter space
-  __shared__ int skind[kMaxNs];
-  for (int k = tid; k < lay.nns; k += kThreads) { skind[k] = lay.ns_kind[k]; dbl[k] = lay.ns_alpha[k]; }
-  if (tid == 0) { cs.nskind = skind; cs.nsalpha = dbl; }
-  __syncthreads();
-  const NsIpm<T>& c = cs;
-
-  for (int i = tid; i < mC * n; i += kThreads) c.AC[i] = ACg[inst * mC * n + i];
-  for (int i = tid; i < p * n; i += kThreads) c.AE[i] = AEg[inst * p * n + i];
-  for (int j = tid; j < n; j += kThreads) { c.c[j] = cg[inst * n + j]; c.x[j] = T(0); c.xb[j] = T(0); }
-  for (int k = tid; k < p; k += kThreads) { c.bE[k] = bEg[inst * p + k]; c.yE[k] = T(0); c.yEb[k] = T(0); }
+  for (int k = tid; k < nns; k += kTeamThreads) { c.nskind[k] = lay.ns_kind[k]; c.nsalpha[k] = lay.ns_alpha[k]; }
+  for (int i = tid; i < mC * n; i += kTeamThreads) c.AC[i] = ACg[inst * mC * n + i];
+  for (int i = tid; i < p * n; i += kTeamThreads) c.AE[i] = AEg[inst * p * n + i];
+  for (int j = tid; j < n; j += kTeamThreads) { c.c[j] = cg[inst * n + j]; c.x[j] = T(0); c.xb[j] = T(0); }
+  for (int k = tid; k < p; k += kTeamThreads) { c.bE[k] = bEg[inst * p + k]; c.yE[k] = T(0); c.yEb[k] = T(0); }
   // ---- init: central s0 (ones, the soc heads, each ns block's central point), yC = -grad F(s0)
-  for (int i = tid; i < mC; i += kThreads) {
+  for (int i = tid; i < mC; i += kTeamThreads) {
     c.bC[i] = bCg[inst * mC + i];
     const int b = c.rblk[i], loc = c.rloc[i];
     T v;
@@ -641,10 +695,11 @@ ns_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __restri
     else v = T(lay.ns_s0[3 * c.bidx[b] + loc]);
     c.s[i] = v;
   }
-  __syncthreads();
+  Team<TW>::sync();
   grad_barrier(c, c.s, c.yC);
-  for (int i = tid; i < mC; i += kThreads) { c.yC[i] = -c.yC[i]; c.yCb[i] = c.yC[i]; c.sb[i] = c.s[i]; }
-  __syncthreads();
+  for (int i = tid; i < mC; i += kTeamThreads) { c.yC[i] = -c.yC[i]; c.yCb[i] = c.yC[i]; c.sb[i] = c.s[i]; }
+  Team<TW>::sync();
+  DK_PROF(kProfInit);
 
   const T eps_w = sizeof(T) == 8 ? T(1e-14) : T(1e-6);
   // ---- main loop: every scalar below is the same in every thread ----------
@@ -656,9 +711,9 @@ ns_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __restri
     const T err = nan_max(nan_max(m.pres, m.dres), m.gaprel);
     if (err < errb) {  // best-iterate tracking
       errb = err;
-      for (int j = tid; j < n; j += kThreads) c.xb[j] = c.x[j];
-      for (int k = tid; k < p; k += kThreads) c.yEb[k] = c.yE[k];
-      for (int i = tid; i < mC; i += kThreads) { c.yCb[i] = c.yC[i]; c.sb[i] = c.s[i]; }
+      for (int j = tid; j < n; j += kTeamThreads) c.xb[j] = c.x[j];
+      for (int k = tid; k < p; k += kTeamThreads) c.yEb[k] = c.yE[k];
+      for (int i = tid; i < mC; i += kTeamThreads) { c.yCb[i] = c.yC[i]; c.sb[i] = c.s[i]; }
     }
     // stall exit: five consecutive bodies without 2% progress on mu and err
     stall = (m.mu > T(0.98) * mu_prev && err > T(0.98) * err_prev) ? stall + 1 : 0;
@@ -668,15 +723,19 @@ ns_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __restri
       own = it + 1;
       break;
     }
+    DK_PROF(kProfMetrics);
     if (tid == 0) cs.mu = m.mu;
-    __syncthreads();
+    Team<TW>::sync();
 
     grad_barrier(c, c.s, c.gradF);
     hbar_data(c, eps_w);
+    DK_PROF(kProfHbar);
     factor(c);
+    DK_PROF(kProfFactor);
 
     // Mehrotra affine probe: one solve for g = yC, every second predictor step, feasibility only
     solve_once(c, c.rd, c.rpE, c.rpC, c.yC, c.tdx, c.tdyE, c.dyCa, c.dsa);
+    DK_PROF(kProfSolveAff);
     const T a_aff = line_search(c, c.s, c.yC, c.dsa, c.dyCa, 0);
     if (threadIdx.x < 32) {
       T a = T(0);
@@ -684,52 +743,58 @@ ns_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __restri
       a = warp_sum(a);
       if (threadIdx.x == 0) c.sc[sMuAff] = a / c.nu_deg;
     }
-    __syncthreads();
+    Team<TW>::sync();
     const T ratio = c.sc[sMuAff] / nan_max(m.mu, T(1e-30));
     const T sigma = nan_min(nan_max(ratio * ratio * ratio, T(0)), T(1));
-    for (int i = tid; i < mC; i += kThreads) c.g[i] = c.yC[i] + (sigma * m.mu) * c.gradF[i];
-    __syncthreads();
+    for (int i = tid; i < mC; i += kTeamThreads) c.g[i] = c.yC[i] + (sigma * m.mu) * c.gradF[i];
+    Team<TW>::sync();
+    DK_PROF(kProfSearchAff);
     solve_dir(c, c.g, c.dx, c.dyE, c.dyC, c.ds);
+    DK_PROF(kProfSolvePred);
     T alpha = line_search(c, c.s, c.yC, c.ds, c.dyC, 1);
+    DK_PROF(kProfSearchPred);
     if (alpha < T(0.05)) {  // pure centering: zero residual right-hand side, no refinement
-      for (int i = tid; i < mC; i += kThreads) c.g[i] = c.yC[i] + m.mu * c.gradF[i];
-      __syncthreads();
-      solve_once(c, (const T*)nullptr, (const T*)nullptr, (const T*)nullptr, c.g, c.dx, c.dyE, c.dyC, c.ds);
+      for (int i = tid; i < mC; i += kTeamThreads) c.g[i] = c.yC[i] + m.mu * c.gradF[i];
+      Team<TW>::sync();
+      solve_once(c, nullptr, nullptr, nullptr, c.g, c.dx, c.dyE, c.dyC, c.ds);
+      DK_PROF(kProfSolveCent);
       alpha = line_search(c, c.s, c.yC, c.ds, c.dyC, 2);
+      DK_PROF(kProfSearchCent);
     }
 
-    const bool bad = any_nonfinite<Team<kWarps>>(c.dx, n, c.dyC, mC, c.ds, mC, c.dyE, p) || !isfinite(alpha);
+    const bool bad = any_nonfinite<Team<TW>>(c.dx, n, c.dyC, mC, c.ds, mC, c.dyE, p) || !isfinite(alpha);
     if (bad) {
       own = it + 1;
       break;
     }
     alpha = nan_max(alpha, T(0));
-    for (int j = tid; j < n; j += kThreads) c.x[j] += alpha * c.dx[j];
-    for (int k = tid; k < p; k += kThreads) c.yE[k] += alpha * c.dyE[k];
-    for (int i = tid; i < mC; i += kThreads) { c.yC[i] += alpha * c.dyC[i]; c.s[i] += alpha * c.ds[i]; }
-    __syncthreads();
+    for (int j = tid; j < n; j += kTeamThreads) c.x[j] += alpha * c.dx[j];
+    for (int k = tid; k < p; k += kTeamThreads) c.yE[k] += alpha * c.dyE[k];
+    for (int i = tid; i < mC; i += kTeamThreads) { c.yC[i] += alpha * c.dyC[i]; c.s[i] += alpha * c.ds[i]; }
+    Team<TW>::sync();
+    DK_PROF(kProfUpdate);
     mu_prev = m.mu;
     err_prev = err;
   }
-  __syncthreads();
+  Team<TW>::sync();
 
   // ---- the exit state never got a best-update inside the loop: score it ----
   {
     const Metrics<T> m = metrics(c);
     const T err = nan_max(nan_max(m.pres, m.dres), m.gaprel);
-    const bool fin = !any_nonfinite<Team<kWarps>>(c.x, n, c.yC, mC, c.x, 0, c.x, 0);
+    const bool fin = !any_nonfinite<Team<TW>>(c.x, n, c.yC, mC, c.x, 0, c.x, 0);
     if (!(err < errb && fin)) {
-      for (int j = tid; j < n; j += kThreads) c.x[j] = c.xb[j];
-      for (int k = tid; k < p; k += kThreads) c.yE[k] = c.yEb[k];
-      for (int i = tid; i < mC; i += kThreads) { c.yC[i] = c.yCb[i]; c.s[i] = c.sb[i]; }
+      for (int j = tid; j < n; j += kTeamThreads) c.x[j] = c.xb[j];
+      for (int k = tid; k < p; k += kTeamThreads) c.yE[k] = c.yEb[k];
+      for (int i = tid; i < mC; i += kTeamThreads) { c.yC[i] = c.yCb[i]; c.s[i] = c.sb[i]; }
     }
-    __syncthreads();
+    Team<TW>::sync();
   }
   // the metrics OF THE RETURNED STATE
   const Metrics<T> m = metrics(c);
-  for (int j = tid; j < n; j += kThreads) x_out[inst * n + j] = c.x[j];
-  for (int k = tid; k < p; k += kThreads) yE_out[inst * p + k] = c.yE[k];
-  for (int i = tid; i < mC; i += kThreads) {
+  for (int j = tid; j < n; j += kTeamThreads) x_out[inst * n + j] = c.x[j];
+  for (int k = tid; k < p; k += kTeamThreads) yE_out[inst * p + k] = c.yE[k];
+  for (int i = tid; i < mC; i += kTeamThreads) {
     yC_out[inst * mC + i] = c.yC[i];
     s_out[inst * mC + i] = c.s[i];
   }
@@ -739,6 +804,13 @@ ns_kernel(const T* __restrict__ cg, const T* __restrict__ bEg, const T* __restri
     dres_out[inst] = m.dres;
     gap_out[inst] = m.gaprel;
   }
+  DK_PROF(kProfExit);
+#ifdef DK_PROFILE
+  if (tid == 0) {
+    DK_PROF_ADD(kProfTotal, clock64() - tstart_);
+    DK_PROF_ADD(kProfBodies, it);
+  }
+#endif
 }
 
 inline bool make_layout(NsLayout& lay, int n, int p, int l, int nsoc, const int* soc_dims, int nns,
@@ -759,55 +831,113 @@ inline bool make_layout(NsLayout& lay, int n, int p, int l, int nsoc, const int*
   return true;
 }
 
+// Whether a team of tw warps takes the layout: K's rows in the team's register tiles, its working set
+// in one block's shared memory
+inline bool ns_team_takes(const NsLayout& lay, int itemsize, int tw) {
+  const int N = lay.n + lay.p + ns_mC(lay);
+  return (tw == 1 || tw == 2 || tw == 8) && N <= tile_max_n(tw) &&
+         ns_smem_bytes(lay, itemsize, tw) + kNsStatic <= kMaxSmemBytes;
+}
+
+// The launch rule (mirrored by ops/cuda/ns_pdip.py::team_for): the smallest team that takes the layout;
+// 0 if none does
+inline int ns_team(const NsLayout& lay, int itemsize) {
+  for (int tw : kTeams)
+    if (ns_team_takes(lay, itemsize, tw)) return tw;
+  return 0;
+}
+
 template <typename T>
 int launch_ns(const void* c, const void* bE, const void* bC, const void* AE, const void* AC, void* x, void* yE,
               void* yC, void* s, void* it, void* pres, void* dres, void* gap, int B, int n, int p, int l, int nsoc,
               const int* soc_dims, int nns, const int* kinds, const double* alphas, const double* central,
-              const double* pred, int iters, double tol, double reg, double eps, double beta, void* stream) {
+              const double* pred, int iters, double tol, double reg, double eps, double beta, int team,
+              void* stream) {
   NsLayout lay;
   if (!make_layout(lay, n, p, l, nsoc, soc_dims, nns, kinds, alphas, central, pred))
     return int(cudaErrorInvalidValue);
-  const int mC = ns_mC(lay);
-  const size_t smem = ns_smem_bytes(lay, sizeof(T));
-  if (B <= 0 || n <= 0 || p < 0 || l < 0 || mC <= 0 || n + p + mC > kTileGrid * kMaxTileRows ||
-      smem + sizeof(NsIpm<T>) + kMaxNs * sizeof(int) > kMaxSmemBytes)
-    return int(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(ns_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
-  ns_kernel<T><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(c), static_cast<const T*>(bE), static_cast<const T*>(bC), static_cast<const T*>(AE),
-      static_cast<const T*>(AC), static_cast<T*>(x), static_cast<T*>(yE), static_cast<T*>(yC), static_cast<T*>(s),
-      static_cast<int*>(it), static_cast<T*>(pres), static_cast<T*>(dres), static_cast<T*>(gap), lay, iters, T(tol),
-      T(reg), T(eps), T(beta));
-  return int(cudaGetLastError());
+  if (B <= 0 || n <= 0 || p < 0 || l < 0 || ns_mC(lay) <= 0) return int(cudaErrorInvalidValue);
+  const int tw = team ? team : ns_team(lay, int(sizeof(T)));
+  if (!ns_team_takes(lay, int(sizeof(T)), tw)) return int(cudaErrorInvalidValue);  // refused: no other team
+  return with_team(tw, [&](auto tc) {
+    constexpr int TW = decltype(tc)::value;
+    const size_t smem = ns_smem_bytes(lay, int(sizeof(T)), TW);
+    cudaError_t e = smem_attributes(ns_kernel<T, TW>, smem);
+    if (e != cudaSuccess) return int(e);
+    ns_kernel<T, TW><<<B, 32 * TW, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(c), static_cast<const T*>(bE), static_cast<const T*>(bC), static_cast<const T*>(AE),
+        static_cast<const T*>(AC), static_cast<T*>(x), static_cast<T*>(yE), static_cast<T*>(yC),
+        static_cast<T*>(s), static_cast<int*>(it), static_cast<T*>(pres), static_cast<T*>(dres),
+        static_cast<T*>(gap), lay, iters, T(tol), T(reg), T(eps), T(beta));
+    return int(cudaGetLastError());
+  });
+}
+
+// teams of tw warps resident on one SM for the layout (registers, shared memory and the SM's block and
+// warp limits together); a negative CUDA error code on failure
+template <typename T>
+int ns_blocks_per_sm(const NsLayout& lay, int tw) {
+  if (!ns_team_takes(lay, int(sizeof(T)), tw)) return -int(cudaErrorInvalidValue);
+  return with_team(tw, [&](auto tc) {
+    constexpr int TW = decltype(tc)::value;
+    const size_t smem = ns_smem_bytes(lay, int(sizeof(T)), TW);
+    cudaError_t e = smem_attributes(ns_kernel<T, TW>, smem);
+    int blocks = 0;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ns_kernel<T, TW>, 32 * TW, smem);
+    return e == cudaSuccess ? blocks : -int(e);
+  });
 }
 
 }  // namespace dk
 
 extern "C" {
 
+#ifdef DK_PROFILE
+int ns_pdip_prof_read(unsigned long long* out) { return dk::prof_read(out); }
+int ns_pdip_prof_zero() { return dk::prof_zero(); }
+#endif
+
 const char* dk_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
-// Dynamic shared memory the kernel needs, in bytes (itemsize 4 or 8); -1 for a layout it refuses.
-long long ns_pdip_smem_bytes(int n, int p, int l, int nsoc, const int* soc_dims, int nns, int itemsize) {
+// Dynamic shared memory a team of `team` warps needs, in bytes (itemsize 4 or 8); -1 for a layout it refuses.
+long long ns_pdip_smem_bytes(int n, int p, int l, int nsoc, const int* soc_dims, int nns, int itemsize, int team) {
   dk::NsLayout lay;
   if (!dk::make_layout(lay, n, p, l, nsoc, soc_dims, nns, nullptr, nullptr, nullptr, nullptr)) return -1;
-  return (long long)dk::ns_smem_bytes(lay, itemsize);
+  return (long long)dk::ns_smem_bytes(lay, itemsize, team);
 }
 
+// The team the launch rule picks for the layout (1, 2 or 8 warps); 0 where none takes it, -1 for a bad layout.
+int ns_pdip_team(int n, int p, int l, int nsoc, const int* soc_dims, int nns, int itemsize) {
+  dk::NsLayout lay;
+  if (!dk::make_layout(lay, n, p, l, nsoc, soc_dims, nns, nullptr, nullptr, nullptr, nullptr)) return -1;
+  return dk::ns_team(lay, itemsize);
+}
+
+// Teams of `team` warps resident per SM for the layout; a negative CUDA error code where it cannot launch.
+int ns_pdip_blocks_per_sm(int n, int p, int l, int nsoc, const int* soc_dims, int nns, int itemsize, int team) {
+  dk::NsLayout lay;
+  if (!dk::make_layout(lay, n, p, l, nsoc, soc_dims, nns, nullptr, nullptr, nullptr, nullptr))
+    return -int(cudaErrorInvalidValue);
+  return itemsize == 4 ? dk::ns_blocks_per_sm<float>(lay, team) : dk::ns_blocks_per_sm<double>(lay, team);
+}
+
+// team: 1, 2 or 8 warps per instance, or 0 for the launch rule's choice; a team that does not take the
+// layout is refused (cudaErrorInvalidValue), never replaced by another.
 int ns_pdip_f32(const void* c, const void* bE, const void* bC, const void* AE, const void* AC, void* x, void* yE,
                 void* yC, void* s, void* it, void* pres, void* dres, void* gap, int B, int n, int p, int l, int nsoc,
                 const int* soc_dims, int nns, const int* kinds, const double* alphas, const double* central,
-                const double* pred, int iters, double tol, double reg, double eps, double beta, void* stream) {
+                const double* pred, int iters, double tol, double reg, double eps, double beta, int team,
+                void* stream) {
   return dk::launch_ns<float>(c, bE, bC, AE, AC, x, yE, yC, s, it, pres, dres, gap, B, n, p, l, nsoc, soc_dims, nns,
-                              kinds, alphas, central, pred, iters, tol, reg, eps, beta, stream);
+                              kinds, alphas, central, pred, iters, tol, reg, eps, beta, team, stream);
 }
 int ns_pdip_f64(const void* c, const void* bE, const void* bC, const void* AE, const void* AC, void* x, void* yE,
                 void* yC, void* s, void* it, void* pres, void* dres, void* gap, int B, int n, int p, int l, int nsoc,
                 const int* soc_dims, int nns, const int* kinds, const double* alphas, const double* central,
-                const double* pred, int iters, double tol, double reg, double eps, double beta, void* stream) {
-  return dk::launch_ns<double>(c, bE, bC, AE, AC, x, yE, yC, s, it, pres, dres, gap, B, n, p, l, nsoc, soc_dims, nns,
-                               kinds, alphas, central, pred, iters, tol, reg, eps, beta, stream);
+                const double* pred, int iters, double tol, double reg, double eps, double beta, int team,
+                void* stream) {
+  return dk::launch_ns<double>(c, bE, bC, AE, AC, x, yE, yC, s, it, pres, dres, gap, B, n, p, l, nsoc, soc_dims,
+                               nns, kinds, alphas, central, pred, iters, tol, reg, eps, beta, team, stream);
 }
 
 }  // extern "C"

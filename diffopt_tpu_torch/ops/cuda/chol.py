@@ -11,8 +11,10 @@ factorisable (Vanderbei 1995), so the LDL' needs no pivoting.
 
 The Cholesky pair (sources: ``csrc/chol.cu``, ``csrc/dense.cuh``) is sized by
 n: the factor runs one instance per team of 1, 2 or 8 warps (the matrix in the
-team's register tiles; one-warp instances packed two to a block so that an SM
-holds more than 32), the solve one instance per warp at k = 1 (four to a
+team's register tiles: one warp to 40 rows, two to 64, eight to 176 in f32 and
+128 in f64, :func:`chol_tile_max_n`; one-warp instances packed two to a block
+so that an SM holds more than 32; past the tiles one block of eight warps with
+the matrix in shared memory), the solve one instance per warp at k = 1 (four to a
 block) and, for k > 1, a team of two warps sharing one copy of L, with L
 reaching shared memory by asynchronous copies that overlap the forward sweep.
 The launch rule (:func:`team_for`, written once in the source as
@@ -107,12 +109,19 @@ def _tri(n: int) -> int:
     return n * (n + 1) // 2
 
 
+def chol_tile_max_n(team: int, itemsize: int) -> int:
+    """Rows a factor team of ``team`` warps holds in its register tiles (``chol_tile_max_n`` in
+    ``csrc/chol.cu``): one warp 40, two 64, eight 176 in f32 and 128 in f64 (past that the shared-memory
+    route)."""
+    return 176 if team == 8 and itemsize == 4 else tile_max_n(team)
+
+
 def _chol_factor_smem_bytes(n: int, itemsize: int, team: int = 8) -> int:
-    """Shared memory of one factor instance (``chol_factor_words``): up to n = 128
-    the pivots and the team's double-buffered pivot column, past it the matrix
-    and the pivots."""
-    if n <= 128:
-        return (n + 2 * tile_max_n(team)) * itemsize
+    """Shared memory of one factor instance (``chol_factor_words``): where the
+    eight-warp tiles hold n, the pivots and the team's double-buffered pivot
+    column; past them the matrix and the pivots."""
+    if n <= chol_tile_max_n(8, itemsize):
+        return (n + 2 * chol_tile_max_n(team, itemsize)) * itemsize
     return (n * _odd(n) + n) * itemsize
 
 
@@ -148,12 +157,12 @@ def smem_bytes(n: int, k: int, itemsize: int, team: int) -> int:
 def team_takes(n: int, k: int, itemsize: int, team: int) -> bool:
     """Whether teams of ``team`` warps take the shape (``k = 0``: the factor):
     the factor on a team whose register tiles hold n (eight warps also past
-    128, in shared memory); the solve on one warp at k = 1 and two for k > 1,
+    them, in shared memory); the solve on one warp at k = 1 and two for k > 1,
     n <= 256; the block's shared memory within 227 KB."""
     if n < 1 or k < 0:
         return False
     if k == 0:
-        if team not in FACTOR_TEAMS or (n > tile_max_n(team) and team != 8):
+        if team not in FACTOR_TEAMS or (n > chol_tile_max_n(team, itemsize) and team != 8):
             return False
     elif team != (1 if k == 1 else 2) or n > _CHOL_SOLVE_MAX_ROWS:
         return False
@@ -491,8 +500,9 @@ def cholesky_batched(H: Tensor, *, team: int | None = None) -> Tensor:
     columns of ``L`` are NaN, and a solve with that ``L`` is NaN throughout.
 
     CUDA tensors go to the kernel (one instance per team of 1, 2 or 8 warps,
-    the matrix in registers up to n = 128, in shared memory up to
-    :func:`cholesky_max_n`; past that, by size, to
+    the matrix in registers up to n = 176 in f32 and 128 in f64
+    (:func:`chol_tile_max_n`), in shared memory up to :func:`cholesky_max_n`;
+    past that, by size, to
     ``torch.linalg.cholesky_ex``), with ``team`` warps per instance (None:
     the launch rule's :func:`team_for`); a team that does not take the shape
     raises ``ValueError``, a failed build or launch raises. CPU tensors go to

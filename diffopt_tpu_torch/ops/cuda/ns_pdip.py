@@ -21,20 +21,26 @@ only), the predictor over 18 (feasibility and the proximity neighbourhood
 ``prox^2 <= (0.9 mu)^2``), the centering over 7 (the least ``prox^2 / mu^2``),
 the last taken where the predictor's step falls below 0.05.
 
-Design on the H100: one thread block per instance, as K6
-(``csrc/conic_pdip.cu``): the data, the iterate and the LDL' factor live in
-shared memory for all iterations, K is assembled entry by entry into
-``dense.cuh``'s register tiles (its ``-Hbar^-1`` blocks computed from the
-stored per-block data, never stored whole), the substitutions run on one warp
-with the right-hand side in registers. Each 3x3 Hessian, its Jacobi
-eigendecomposition and floored inverse run on one thread per ns block. The
-line-search candidates are independent: one thread evaluates one candidate
-over the whole cone (its point ``s + a ds``, ``y + a dy`` computed as it is
-read), the candidates of a search side by side on the lanes of one warp, and
-the choice is made in grid order, so it is the reference's whatever the
-order of evaluation. An instance leaves its loop at its first freeze
-(converged, stalled, ``mu <= 0`` or a non-finite direction); a frozen lane of
-the TPU kernel keeps its state, so the result is the same.
+Design on the H100: one instance per *team* of 1, 2 or 8 warps, one team per
+thread block, many teams resident on each SM, as K6 (``csrc/conic_pdip.cu``):
+the data, the iterate and the LDL' factor live in shared memory for all
+iterations, held as ``SPtr`` indices (every access an LDS / STS); K is
+assembled entry by entry into ``dense.cuh``'s register tiles on the team's
+thread grid (its ``-Hbar^-1`` blocks computed from the stored per-block data,
+never stored whole), the substitutions run on one warp with the right-hand
+side in registers. Each 3x3 Hessian, its Jacobi eigendecomposition and
+floored inverse run on one thread per ns block. The line-search candidates
+are independent: one thread evaluates one candidate over the whole cone (its
+point ``s + a ds``, ``y + a dy`` computed as it is read), the candidates of a
+search side by side on the lanes of one warp, and the choice is made in grid
+order, so it is the reference's whatever the order of evaluation. Which team
+a layout gets is the launch rule, :func:`team_for`, written once in the
+source and mirrored here: the smallest team whose register tiles hold N (one
+warp to 40 rows, two to 64, eight to 128); every team does the same
+operations in the same order, so they give the same bits. An instance leaves
+its loop at its first freeze (converged, stalled, ``mu <= 0`` or a
+non-finite direction); a frozen lane of the TPU kernel keeps its state, so
+the result is the same.
 
 What bounds it on the H100: operations. An instance reads ``(p + mC)(n + 1) +
 n`` words once (the entropy family, n = 6, p = 1, mC = 9: 284 bytes in f32)
@@ -46,7 +52,7 @@ path is sequential, so everything stays on chip.
 Envelope (:func:`in_envelope`): ``N = n + p + mC <= 128`` (the register tiles
 of the LDL'), at most :data:`MAX_SOC_BLOCKS` soc and :data:`MAX_NS_BLOCKS` ns
 blocks, and a working set that fits 227 KB of shared memory
-(:func:`smem_bytes`). Equality-free programs (``p == 0``) are inside it; the
+(:func:`smem_bytes`) for the team that takes it. Equality-free programs (``p == 0``) are inside it; the
 reference's rule that sends them to the staged solver is a routing rule of
 ``conic_nsipm.solve_batched_fused``, kept there.
 
@@ -64,40 +70,58 @@ import numpy as np
 import torch
 
 from .. import jordan, ns_barrier
-from .chol import MAX_SMEM_BYTES, _SUFFIX, _odd, _require_cuda, ldl_batched_plain, ldl_solve_batched_plain
+from .chol import MAX_SMEM_BYTES, _SUFFIX, _odd, _require_cuda, ldl_batched_plain, ldl_solve_batched_plain, tile_max_n
 
 Tensor = torch.Tensor
 
 MAX_N = 128  # rows of K that the register tiles of the LDL' hold
 MAX_SOC_BLOCKS = 128  # kMaxSoc in csrc/ns_pdip.cu
 MAX_NS_BLOCKS = 42  # kMaxNs
+TEAMS = (1, 2, 8)  # warps per instance the kernel is built for (kTeams)
 _SLOTS = 64  # kNsSlots
-_COLBUF = 256  # kColbufWords of dense.cuh
 _KIND_CODE = {"exp": 0, "dual_exp": 1, "pow": 2, "dual_pow": 3}
-_STATIC_SMEM = 1024  # room for the kernel's static shared memory (its pointer table)
+_STATIC_SMEM = 1024  # kNsStatic: room for the kernel's static shared memory (its table of indices)
 MU_FLOOR = 1e-30  # the kernel's floor of mu in the sigma heuristic and the centering value
 
 
-def smem_bytes(n: int, p: int, l: int, soc_dims, ns_blocks, itemsize: int) -> int:
-    """Dynamic shared memory of the kernel — mirrors ``ns_smem_bytes`` in ``csrc/ns_pdip.cu`` (the
-    wrapper checks the two against each other)."""
+def smem_bytes(n: int, p: int, l: int, soc_dims, ns_blocks, itemsize: int, team: int = 8) -> int:
+    """Dynamic shared memory of the kernel for a team of ``team`` warps — mirrors ``ns_smem_bytes`` in
+    ``csrc/ns_pdip.cu`` (the wrapper checks the two against each other): the instance's working set and
+    the team's pivot column (``2 tile_max_n(team)`` words)."""
     nns = len(ns_blocks)
     mC = l + sum(soc_dims) + 3 * nns
     N = n + p + mC
     nb = (1 if l else 0) + len(soc_dims) + nns
-    int_bytes = ((4 * nb + 2 * mC) * 4 + 15) // 16 * 16 + (nns * 8 + 15) // 16 * 16  # ints, then the exponents
+    # the ints (per cone block four, per cone row two, per ns block its kind), then the exponents
+    int_bytes = ((4 * nb + 2 * mC + nns) * 4 + 15) // 16 * 16 + (nns * 8 + 15) // 16 * 16
     words = mC * n + p * n + n + p + mC + 7 * n + 7 * p + 17 * mC + 3 * N + N * _odd(N)
-    words += len(soc_dims) + 18 * nns + _COLBUF + _SLOTS
+    words += len(soc_dims) + 18 * nns + 2 * tile_max_n(team) + _SLOTS
     return int_bytes + words * itemsize
 
 
+def team_takes(n: int, p: int, l: int, soc_dims, ns_blocks, itemsize: int, team: int) -> bool:
+    """Whether a team of ``team`` warps takes the layout (``ns_team_takes``): K's rows in its register
+    tiles, its working set in one block's shared memory."""
+    mC = l + sum(soc_dims) + 3 * len(ns_blocks)
+    return (
+        team in TEAMS and n + p + mC <= tile_max_n(team)
+        and smem_bytes(n, p, l, soc_dims, ns_blocks, itemsize, team) <= MAX_SMEM_BYTES - _STATIC_SMEM
+    )
+
+
+def team_for(n: int, p: int, l: int, soc_dims, ns_blocks, itemsize: int) -> int:
+    """The launch rule (``ns_team`` in ``csrc/ns_pdip.cu``): the smallest team that takes the layout; 0
+    where none does."""
+    return next((t for t in TEAMS if team_takes(n, p, l, soc_dims, ns_blocks, itemsize, t)), 0)
+
+
 def in_envelope(n: int, p: int, l: int, soc_dims, ns_blocks, itemsize: int) -> bool:
-    """Whether the fused kernel takes the layout."""
+    """Whether the fused kernel takes the layout (with the team the launch rule picks)."""
     mC = l + sum(soc_dims) + 3 * len(ns_blocks)
     return (
         mC >= 1 and n >= 1 and n + p + mC <= MAX_N
         and len(soc_dims) <= MAX_SOC_BLOCKS and len(ns_blocks) <= MAX_NS_BLOCKS
-        and smem_bytes(n, p, l, soc_dims, ns_blocks, itemsize) <= MAX_SMEM_BYTES - _STATIC_SMEM
+        and team_for(n, p, l, soc_dims, ns_blocks, itemsize) > 0
     )
 
 
@@ -280,11 +304,15 @@ def _lib():
         for sfx in _SUFFIX.values():
             f = getattr(lib, f"ns_pdip_{sfx}")
             # c, bE, bC, AE, AC, x, yE, yC, s, it, pres, dres, gap; B, n, p, l, nsoc, soc_dims, nns,
-            # ns_kinds, ns_alphas, ns_central, predictor grid; iters, tol, reg, eps, neighborhood; stream
-            f.argtypes = [vp] * 13 + [ci] * 5 + [vp, ci, vp, vp, vp, vp, ci] + [cd] * 4 + [vp]
+            # ns_kinds, ns_alphas, ns_central, predictor grid; iters, tol, reg, eps, neighborhood; team; stream
+            f.argtypes = [vp] * 13 + [ci] * 5 + [vp, ci, vp, vp, vp, vp, ci] + [cd] * 4 + [ci, vp]
             f.restype = ci
-        lib.ns_pdip_smem_bytes.argtypes = [ci, ci, ci, ci, vp, ci, ci]
+        lib.ns_pdip_smem_bytes.argtypes = [ci, ci, ci, ci, vp, ci, ci, ci]
         lib.ns_pdip_smem_bytes.restype = ctypes.c_longlong
+        lib.ns_pdip_team.argtypes = [ci, ci, ci, ci, vp, ci, ci]
+        lib.ns_pdip_team.restype = ci
+        lib.ns_pdip_blocks_per_sm.argtypes = [ci, ci, ci, ci, vp, ci, ci, ci]
+        lib.ns_pdip_blocks_per_sm.restype = ci
         lib._ns_bound = True
     return lib
 
@@ -299,14 +327,17 @@ def solve_tile_fused_ns(
     eps: float = 1e-7,
     step_frac: float = 0.99,
     neighborhood: float = 0.9,
+    team: int | None = None,
 ):
     """Run the fused nonsymmetric-cone IPM on internally-laid-out, batch-first data: ``c (B, n)``,
     ``bE (B, p)``, ``bC (B, mC)``, ``AE (B, p, n)``, ``AC (B, mC, n)``, ``layout = (p, l, soc_dims,
     ns_blocks)`` with ``ns_blocks`` a tuple of ``(kind, alpha)``. Returns ``(x, yE, yC, s, iterations
     (int32), pres, dres, gaprel)``, batch-first, the metrics of the returned state.
 
-    CUDA tensors go to the kernel (a layout outside :func:`in_envelope`, a failed build or a failed
-    launch raises); CPU tensors to the plain version."""
+    CUDA tensors go to the kernel with ``team`` warps per instance (None: the launch rule's
+    :func:`team_for`); a layout outside :func:`in_envelope`, a team that does not take it, a failed
+    build or a failed launch raises — another team is never tried. CPU tensors go to the plain version,
+    which has no teams."""
     p, l, soc_dims, ns_blocks = layout
     soc_dims = tuple(int(d) for d in soc_dims)
     ns_blocks = tuple((str(k), None if a is None else float(a)) for k, a in ns_blocks)
@@ -331,6 +362,14 @@ def solve_tile_fused_ns(
             "kernel's envelope (N <= 128, 227 KB of shared memory); "
             "solvers/conic_nsipm.py::solve_batched_fused routes such batches to the staged solver"
         )
+    if team is None:
+        team = team_for(n, p, l, soc_dims, ns_blocks, itemsize)
+    elif not team_takes(n, p, l, soc_dims, ns_blocks, itemsize, team):
+        raise ValueError(
+            f"solve_tile_fused_ns: a team of {team} warps does not take layout n={n}, p={p}, l={l}, soc"
+            f" {soc_dims}, ns {ns_blocks} (N <= {tile_max_n(team) if team in TEAMS else '-'} and 227 KB of"
+            f" shared memory; teams {TEAMS})"
+        )
     c, bE, bC, AE, AC = (t.detach().contiguous() for t in (c, bE, bC, AE, AC))
     x, yE, yC, s = c.new_empty(B, n), c.new_empty(B, p), c.new_empty(B, mC), c.new_empty(B, mC)
     its = torch.empty(B, dtype=torch.int32, device=c.device)
@@ -347,9 +386,12 @@ def solve_tile_fused_ns(
             (ctypes.c_double * 18)(*ns_barrier.pred_grid(step_frac)),
         )
         socs, kinds, alphas, central, pred = (ctypes.cast(a, ctypes.c_void_p) for a in keep)
-        want = smem_bytes(n, p, l, soc_dims, ns_blocks, itemsize)
-        if lib.ns_pdip_smem_bytes(n, p, l, len(soc_dims), socs, nns, itemsize) != want:
+        want = smem_bytes(n, p, l, soc_dims, ns_blocks, itemsize, team)
+        if lib.ns_pdip_smem_bytes(n, p, l, len(soc_dims), socs, nns, itemsize, team) != want:
             raise RuntimeError("solve_tile_fused_ns: shared-memory layout of wrapper and kernel differ")
+        if lib.ns_pdip_team(n, p, l, len(soc_dims), socs, nns, itemsize) != team_for(n, p, l, soc_dims, ns_blocks,
+                                                                                   itemsize):
+            raise RuntimeError("solve_tile_fused_ns: launch rule of wrapper and kernel differ")
         fn = getattr(lib, f"ns_pdip_{_SUFFIX[dt]}")
         with torch.cuda.device(c.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -358,13 +400,28 @@ def solve_tile_fused_ns(
                 x.data_ptr(), yE.data_ptr(), yC.data_ptr(), s.data_ptr(), its.data_ptr(),
                 pres.data_ptr(), dres.data_ptr(), gap.data_ptr(), B, n, p, l, len(soc_dims), socs, nns,
                 kinds, alphas, central, pred, int(max_iters), float(tol), float(reg), float(eps),
-                float(neighborhood), stream,
+                float(neighborhood), int(team), stream,
             )
         from . import _build
 
-        _build.check(lib, code, "solve_tile_fused_ns")
+        _build.check(lib, code, f"solve_tile_fused_ns (team of {team} warps)")
         solve_tile_fused_ns.launches += 1
     return x, yE, yC, s, its, pres, dres, gap
 
 
 solve_tile_fused_ns.launches = 0
+
+
+def blocks_per_sm(n: int, p: int, l: int, soc_dims, ns_blocks, dtype, team: int) -> int:
+    """Instances (teams of ``team`` warps) resident on one SM of the current card for the layout, as the
+    CUDA occupancy calculator counts them with the built kernel's registers and shared memory. Needs the
+    card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("ns_pdip.blocks_per_sm: no CUDA device")
+    soc_dims = tuple(int(d) for d in soc_dims)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    socs = ctypes.cast((ctypes.c_int * max(len(soc_dims), 1))(*soc_dims), ctypes.c_void_p)
+    got = _lib().ns_pdip_blocks_per_sm(n, p, l, len(soc_dims), socs, len(ns_blocks), itemsize, team)
+    if got < 0:
+        raise RuntimeError(f"ns_pdip.blocks_per_sm: CUDA error {-got} for a team of {team} warps")
+    return got

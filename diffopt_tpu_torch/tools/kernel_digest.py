@@ -6,15 +6,18 @@ Two builds whose kernels do the same arithmetic in the same order print the
 same digests; so this shows, bit for bit, that an edit to code the kernels
 share (``csrc/dense.cuh``, ``csrc/ipm.cuh``) left a kernel's results as they
 were. Run it in two checkouts, in one call on one card, and compare the lines
-(to run it against a checkout that lacks it: ``PYTHONPATH=<checkout> python3
-<this file>``). Every batch is made on the card from a seed: K1 on the QP
+(to run it against a checkout that lacks it but whose ``utils/testing.py``
+has the batch makers it imports: ``PYTHONPATH=<checkout> python3 <this
+file>``). Every batch is made on the card from a seed: K1 on the QP
 main path's shape (n = 64, m = 32, p = 16) and on n = 32, m = 16, p = 8 in f32
 and f64, K2 / K3 on quasi-definite matrices of N = 112 (k = 3) and, from
 generators of their own, N = 112 and 172 (160 in f64; k = 1 and 3), K4 / K5 on SPD
 matrices at every shape the port launches them at (n = 3, 6, 16, 17, 18, 34,
 44, 64, 144 and 160; k = 1, 3 and 16 at each), K6 on the SOCP (n = 16, SOC(17)) in f32 and f64 and the SDP of psd side 4,
-K7 on the entropy family (k = 3) in f32 and f64 and the dual-exp family in
-f64.
+K7 on the entropy family (k = 3) in f32 and f64, the pow family and the
+dual-exp family in f64 at the launch rule's team ("team rule") and at every
+team that takes the layout (a checkout whose wrapper has no teams prints the
+first line only).
 """
 
 from __future__ import annotations
@@ -39,26 +42,13 @@ def _gen(seed):
     return g
 
 
-def _dual_exp(B, dtype, gen):
-    from diffopt_tpu_torch import ConeProgram, ConeSpec
-
-    A = torch.zeros(B, 4, 2, dtype=dtype, device=DEVICE)
-    A[:, 0, 1] = 1.0
-    A[:, 1, 0] = -1.0
-    b = torch.zeros(B, 4, dtype=dtype, device=DEVICE)
-    b[:, 0] = 1.0
-    b[:, 2:] = 0.5 + 1.5 * torch.rand(B, 2, dtype=dtype, device=DEVICE, generator=gen)
-    c = torch.zeros(B, 2, dtype=dtype, device=DEVICE)
-    c[:, 0] = 1.0
-    return ConeProgram(A, b, c, ConeSpec([("zero", 1), ("dual_exp", 3)]))
-
-
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_digest: no CUDA device")
     from diffopt_tpu_torch.ops.cuda import chol, conic_pdip, ns_pdip, pdip
     from diffopt_tpu_torch.solvers import conic_ipm
-    from diffopt_tpu_torch.utils.testing import make_batch, make_entropy_batch, make_sdp_batch, make_socp_batch
+    from diffopt_tpu_torch.utils.testing import (make_batch, make_dual_exp_batch, make_entropy_batch, make_pow_batch,
+                                                 make_sdp_batch, make_socp_batch, ns_internal_rows)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     for dt in (torch.float32, torch.float64):
@@ -113,13 +103,15 @@ def main():
                 print(f"[digest] K6 conic_pdip {label} team {team}: {digest(*out)}")
     for label, cp in (("entropy f32", make_entropy_batch(16384, k=3, seed=0, device=DEVICE)),
                       ("entropy f64", make_entropy_batch(2048, k=3, seed=1, dtype=torch.float64, device=DEVICE)),
-                      ("dual_exp f64", _dual_exp(1024, torch.float64, _gen(11)))):
-        R, p, l, socs, _, ns = conic_ipm._row_transform(cp.cones, allow_ns=True)
-        R = torch.as_tensor(R, dtype=cp.A.dtype, device=DEVICE)
-        A = torch.einsum("ij,bjk->bik", R, cp.A)
-        b = cp.b @ R.T
-        out = ns_pdip.solve_tile_fused_ns(cp.c, b[:, :p], b[:, p:], A[:, :p], A[:, p:], (p, l, socs, ns))
-        print(f"[digest] K7 ns_pdip {label}: {digest(*out)}")
+                      ("dual_exp f64", make_dual_exp_batch(1024, device=DEVICE, generator=_gen(11))),
+                      ("pow f64", make_pow_batch(1024, seed=3, device=DEVICE))):
+        args, lay = ns_internal_rows(cp)
+        p, l, socs, ns = lay
+        print(f"[digest] K7 ns_pdip {label} team rule: {digest(*ns_pdip.solve_tile_fused_ns(*args, lay))}")
+        for team in getattr(ns_pdip, "TEAMS", ()):
+            if ns_pdip.team_takes(cp.num_vars, p, l, socs, ns, cp.A.element_size(), team):
+                out = ns_pdip.solve_tile_fused_ns(*args, lay, team=team)
+                print(f"[digest] K7 ns_pdip {label} team {team}: {digest(*out)}")
 
 
 if __name__ == "__main__":

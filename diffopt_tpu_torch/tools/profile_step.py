@@ -1,6 +1,6 @@
 """Where one solve + VJP step spends its device time.
 
-    python3 -m diffopt_tpu_torch.tools.profile_step [--batch 32768] [--path main|staged|conic|exp]
+    python3 -m diffopt_tpu_torch.tools.profile_step [--batch 32768] [--path main|staged|qp100|conic|exp|sdp] [--side 16]
 
 Runs one step forward + backward once to warm up and once under
 ``torch.profiler``, and prints the device time by kernel, the step's wall
@@ -15,7 +15,9 @@ IPM, gram polish and VJP on the Cholesky kernels) on the SOCP of BASELINE
 config 3 (n = 16, SOC(17), f32); ``--path exp`` is ``solve_conic_batched``
 with its defaults (fused nonsymmetric IPM K7, gram polish and VJP) on the
 entropy family of the exp benchmark (k = 3, f32; ``--batch`` is capped at its
-16384). The host syncs and the step's time without the profiler are printed
+16384); ``--path sdp`` is ``solve_conic_batched`` with its defaults on the SDP
+family of ``chip_smoke.py``'s ``[sdp]`` line (n = 3, psd side ``--side`` and
+SOC(4), f32; ``--batch`` is capped at its 4096). The host syncs and the step's time without the profiler are printed
 too.
 """
 
@@ -31,7 +33,9 @@ import torch
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=32768)
-    ap.add_argument("--path", choices=("main", "staged", "qp100", "conic", "exp"), default="main", help="which entry point to profile")
+    ap.add_argument("--path", choices=("main", "staged", "qp100", "conic", "exp", "sdp"), default="main",
+                    help="which entry point to profile")
+    ap.add_argument("--side", type=int, default=16, help="psd side of --path sdp")
     ap.add_argument("--rows", type=int, default=16, help="rows of the table")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -40,7 +44,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import diffopt_tpu_torch as dtt
-    from diffopt_tpu_torch.utils.testing import make_batch, make_entropy_batch, make_socp_batch
+    from diffopt_tpu_torch.utils.testing import make_batch, make_entropy_batch, make_sdp_batch, make_socp_batch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -49,6 +53,9 @@ def main():
     elif args.path == "exp":
         args.batch = min(args.batch, 16384)
         prog = make_entropy_batch(args.batch, k=3, seed=0).map(lambda t: t.requires_grad_())
+    elif args.path == "sdp":
+        args.batch = min(args.batch, 4096)
+        prog = make_sdp_batch(args.batch, args.side, n=3, seed=args.side).map(lambda t: t.requires_grad_())
     elif args.path == "qp100":
         args.batch = min(args.batch, 8192)
         prog = make_batch(args.batch, 100, 48, 24, torch.float32, "cuda", gen).map(lambda t: t.requires_grad_())

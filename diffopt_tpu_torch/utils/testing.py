@@ -218,3 +218,33 @@ def make_pow_batch(B, seed=3, dtype=torch.float64, device="cuda"):
         c_b.append(-A.T @ y_star)
     as_t = lambda x: torch.as_tensor(np.stack(x)).to(device=device, dtype=dtype)
     return ConeProgram(A=as_t(A_b), b=as_t(b_b), c=as_t(c_b), cones=cones)
+
+
+def make_dual_exp_batch(B, dtype=torch.float64, device="cuda", generator=None):
+    """min u s.t. (u, beta, gamma) in K_exp* (the dual-exp family of the JAX package's nonsymmetric tests)
+    with one zero row fixing a second variable, so that the fused kernel takes it: beta, gamma uniform in
+    [0.5, 2], drawn on ``device`` from ``generator``."""
+    from ..cones import ConeSpec
+    from ..ir import ConeProgram
+
+    A = torch.zeros(B, 4, 2, dtype=dtype, device=device)
+    A[:, 0, 1] = 1.0
+    A[:, 1, 0] = -1.0
+    b = torch.zeros(B, 4, dtype=dtype, device=device)
+    b[:, 0] = 1.0
+    b[:, 2:] = 0.5 + 1.5 * torch.rand(B, 2, dtype=dtype, device=device, generator=generator)
+    c = torch.zeros(B, 2, dtype=dtype, device=device)
+    c[:, 0] = 1.0
+    return ConeProgram(A, b, c, ConeSpec([("zero", 1), ("dual_exp", 3)]))
+
+
+def ns_internal_rows(cp):
+    """The fused nonsymmetric-cone kernel's inputs for a ConeProgram batch, its rows through the static
+    transform R: ``((c, bE, bC, AE, AC), (p, l, soc_dims, ns_blocks))``."""
+    from ..solvers import conic_ipm
+
+    R, p, l, socs, _, ns = conic_ipm._row_transform(cp.cones, allow_ns=True)
+    R = torch.as_tensor(R, dtype=cp.A.dtype, device=cp.A.device)
+    A = torch.einsum("ij,bjk->bik", R, cp.A)
+    b = cp.b @ R.T
+    return (cp.c, b[:, :p], b[:, p:], A[:, :p], A[:, p:]), (p, l, socs, ns)

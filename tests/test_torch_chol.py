@@ -209,7 +209,22 @@ def test_cholesky_envelope_unchanged():
     # the factor's envelope is what the shared-memory route past 128 rows holds, as before
     assert tchol.cholesky_max_n(torch.float32) == 240 and tchol.cholesky_max_n(torch.float64) == 169
     assert tchol.team_for(241, 0, 4) == (0, 0) and tchol.team_for(170, 0, 8) == (0, 0)
-    assert tchol.team_for(129, 0, 4) == (8, 1)  # past the register tiles: eight warps, shared memory
+    assert tchol.team_for(129, 0, 4) == (8, 1)  # past 128 rows: eight warps
+
+
+def test_cholesky_register_route_pinned():
+    # the factor in eight warps' registers to 176 rows in f32 and 128 in f64, the shared-memory route past them
+    assert tchol.chol_tile_max_n(8, 4) == 176 and tchol.chol_tile_max_n(8, 8) == 128
+    assert [tchol.chol_tile_max_n(t, i) for t in (1, 2) for i in (4, 8)] == [40, 40, 64, 64]
+    for n, itemsize in ((144, 4), (160, 4), (176, 4), (128, 8)):
+        assert tchol.team_for(n, 0, itemsize) == (8, 1)
+        assert tchol.smem_bytes(n, 0, itemsize, 8) == (n + 2 * tchol.chol_tile_max_n(8, itemsize)) * itemsize < 4096
+    for n, itemsize in ((177, 4), (240, 4), (129, 8), (169, 8)):
+        assert tchol.team_for(n, 0, itemsize) == (8, 1)
+        assert tchol.smem_bytes(n, 0, itemsize, 8) == (n * (n | 1) + n) * itemsize  # the matrix in shared memory
+    for team in (1, 2):  # the smaller teams' tiles as before; past them only eight warps
+        top = tchol.chol_tile_max_n(team, 4)
+        assert tchol.team_takes(top, 0, 4, team) and not tchol.team_takes(top + 1, 0, 4, team)
 
 
 def test_cholesky_forced_launch_off_its_shape_raises_and_cpu_launches_nothing():

@@ -79,3 +79,62 @@ def test_wrapper_checks_and_envelope():
     launches = tk.solve_tile_fused_ns.launches
     tk.solve_tile_fused_ns(*args, (1, 0, (), (("exp", None),) * 2), max_iters=3)
     assert tk.solve_tile_fused_ns.launches == launches  # the plain version on the CPU is no launch
+
+
+def _old_smem_bytes(n, p, l, socs, ns, itemsize):
+    """The eight-warp kernel's shared memory before the teams: no ns kinds among the ints, a 256-word
+    pivot column."""
+    nns, mC = len(ns), l + sum(socs) + 3 * len(ns)
+    N, nb = n + p + mC, (1 if l else 0) + len(socs) + nns
+    int_bytes = ((4 * nb + 2 * mC) * 4 + 15) // 16 * 16 + (nns * 8 + 15) // 16 * 16
+    words = mC * n + p * n + n + p + mC + 7 * n + 7 * p + 17 * mC + 3 * N + N * (N | 1)
+    return int_bytes + (words + len(socs) + 18 * nns + 256 + 64) * itemsize
+
+
+def _ns_layouts(rng, count):
+    kinds = (("exp", None), ("dual_exp", None), ("pow", 0.3), ("dual_pow", 0.7))
+    out = []
+    for _ in range(count):
+        n, p, l = int(rng.integers(1, 60)), int(rng.integers(0, 20)), int(rng.integers(0, 30))
+        socs = tuple(int(d) for d in rng.integers(1, 12, size=int(rng.integers(0, 4))))
+        ns = tuple(kinds[int(k)] for k in rng.integers(0, 4, size=int(rng.integers(0, 16))))
+        out.append((n, p, l, socs, ns))
+    return out
+
+
+def test_launch_rule_table():
+    """The Python mirror of K7's launch rule: for every layout the eight-warp kernel took, the smallest
+    team that takes it, whose tiles hold N and whose working set fits one block's 227 KB with the static
+    table; the team grows with N; the entropy layout of [exp] (n = 6, p = 1, three exp blocks: N = 16)
+    runs on one warp. No card and no JAX needed."""
+    rng = np.random.default_rng(0)
+    taken = 0
+    for itemsize in (4, 8):
+        for lay in _ns_layouts(rng, 2000):
+            n, p, l, socs, ns = lay
+            mC = l + sum(socs) + 3 * len(ns)
+            N = n + p + mC
+            old = mC >= 1 and N <= 128 and _old_smem_bytes(*lay, itemsize) <= tk.MAX_SMEM_BYTES - 1024
+            assert tk.in_envelope(*lay, itemsize) == old, lay
+            team = tk.team_for(*lay, itemsize)
+            if not old:
+                continue
+            taken += 1
+            assert team in tk.TEAMS and tk.team_takes(*lay, itemsize, team), (lay, team)
+            assert all(not tk.team_takes(*lay, itemsize, t) for t in tk.TEAMS if t < team), (lay, team)
+            assert N <= tk.tile_max_n(team) and (team == 1 or N > tk.tile_max_n(tk.TEAMS[tk.TEAMS.index(team) - 1]))
+            assert tk.smem_bytes(*lay, itemsize, team) + 1024 <= tk.MAX_SMEM_BYTES
+    assert taken > 1000
+    # the team grows with N: exp blocks added one by one to n = 6, p = 1
+    teams = [tk.team_for(6, 1, 0, (), (("exp", None),) * k, 4) for k in range(1, 41)]
+    assert teams == sorted(teams) and set(teams) == set(tk.TEAMS)
+    assert [3 * k + 7 for k, t in enumerate(teams, 1) if t == 2][0] == 43  # past 40 rows: two warps
+    entropy = (6, 1, 0, (), (("exp", None),) * 3)
+    assert tk.team_for(*entropy, 4) == 1 and tk.team_for(*entropy, 8) == 1
+    # the entropy layout's working set on one warp: under 4 KB in f32 (the eight-warp kernel's pivot column was
+    # 256 words; the three ns kinds take one more 16-byte piece of ints)
+    assert tk.smem_bytes(*entropy, 4, 1) == _old_smem_bytes(*entropy, 4) - 4 * (256 - 80) + 16
+    assert tk.smem_bytes(*entropy, 4, 1) < 4096
+    # a forced team that does not take the layout raises before anything is launched
+    assert not tk.team_takes(6, 1, 0, (), (("exp", None),) * 12, 4, 1)  # N = 43 > 40
+    assert not tk.team_takes(6, 1, 0, (), (("exp", None),) * 3, 4, 4)  # teams of four warps are not built

@@ -66,9 +66,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    difference, ``ConicDiffContext``, the DR splitting on an equality-only
    program and on the entropy family, the exp / pow DPi against a central
    difference of Pi, and a padded heterogeneous exp / pow batch;
-8. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``,
-   ``exp``, ``k6_teams``, ``k7_teams``, ``k1_teams``, ``chol_teams``, ``ldl_teams`` and
-   ``{"kernels": [...]}`` (K1-K7; K2 and K3 at N = 112 and 172, K4 and K5 one
+8. the NLP path: ``[nlp]`` at the shape of the JAX package's NLP benchmark
+   (BASELINE config 4: n = 16, nc = 8 equalities, B = 16384, f32,
+   ``max_iters=40, tol=1e-6``): the bench's step (the embedded solver, its
+   Newton systems on K2 / K3 at N = 24, then the forward sensitivity dx) and
+   ``solve_nlp`` forward + backward of ``sum(x**2)``, each a warm-up and three
+   timed steps (launch counts by shape, host syncs, converged share), 512
+   instances of the path against the same calls through the plain K2 / K3 in
+   f64 and f32, K2 / K3 held and timed on the path's own Newton systems, and
+   the same instances going non-finite in K2 / K3 and their plain versions
+   on systems with a zero pivot;
+   then ``[nlp-routes]`` at small batches in f64, each call on the card against
+   the same call on the host: the solver with every constraint kind and finite
+   bounds, min and max, ``solve_nlp``'s reverse and forward rules,
+   ``NLPDiffContext``, ``ParametricProgram(kind="nlp")``, the route past 128
+   rows, an inertia-corrected singular KKT matrix and ``bridges.qp_via_conic``
+   with its gradient against ``solve_qp``;
+9. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``,
+   ``exp``, ``nlp``, ``k6_teams``, ``k7_teams``, ``k1_teams``, ``chol_teams``, ``ldl_teams`` and
+   ``{"kernels": [...]}`` (K1-K7; K2 and K3 at N = 112, 172 and 24, K4 and K5 one
    entry per shape a path launched them at, with its launches per step on
    each path),
    the card's name and power limit, and as the last line ``{"ok": true,
@@ -78,6 +94,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -2208,6 +2225,376 @@ def phase_ns_routes(gen):
           "[ns-routes]: the padded exp/pow batch disagrees with per-instance solves")
 
 
+# ---- the NLP path: [nlp] (K2 / K3 at N = 24), [nlp-routes] -------------------------------------------------
+
+NLP_MAX_ITERS, NLP_TOL = 40, 1e-6  # the JAX package's NLP benchmark (benchmarks/nlp_bench.py)
+# the [nlp] path against the same calls routed through the plain versions of K2 / K3, per instance and relative to
+# 1 + the instance's largest entry: at most `share` of the 512 instances past `tol`, none past `max`. f64 solves stop
+# after 3-4 bodies below the 1e-6 KKT tolerance and the routes differ by rounding (an instance whose error sat at the
+# tolerance, so that one route took one more body, would part by far more and fail the run: none does on this
+# batch, whose iteration counts agree on every instance); f32 solves run to the 40-body cap near the f32 floor, where the
+# f32 solution itself sits within a few 1e-7 (x) and 1e-6 (dx) of the f64 one on this batch. The limits are stated
+# multiples of the H100's readings on this batch: f64 x max 4.2e-16, dx 2.4e-15; f32 x 2.1e-7, dx 1.1e-6
+TOL_NLP = {
+    torch.float64: {"x": (1e-13, 1e-12), "dx": (1e-12, 1e-11), "share": 0.01},  # max: >= 2,000x the readings
+    torch.float32: {"x": (1e-6, 1e-5), "dx": (1e-5, 1e-4), "share": 0.01},  # max: 48x and 90x the readings
+}
+# the card against the host on the same small f64 calls ([nlp-routes]), relative to 1 + the largest entry
+TOL_NLP_ROUTES = 1e-8
+# ... and for qp_via_conic, whose conic IPM ends at its floor near tol=1e-11 (see phase_nlp_routes): 5x the larger
+# of the H100's readings on an earlier draw of the same shape, 3.7e-7 and 8.1e-7; its residuals at most 1e-9, the
+# converged test of tol=1e-10 (the host reads 1.4e-10 at most on the draw held)
+TOL_QP_VIA_CONIC = 4e-6
+QP_VIA_CONIC_RESID = 1e-9
+
+
+def _nlp_bench_step(nlp, p, dp):
+    """The NLP benchmark's step: the embedded solver, then the forward sensitivity dx along dp."""
+    from diffopt_tpu_torch import nlp_diff
+    from diffopt_tpu_torch.solvers import nlp as nlpsolver
+
+    def step():
+        sol, info = nlpsolver.solve(nlp, p, max_iters=NLP_MAX_ITERS, tol=NLP_TOL)
+        return sol, info, nlp_diff.forward_differentiate(nlp, sol, p, dp).dx
+
+    return step
+
+
+def _nlp_vjp_step(nlp, p):
+    """solve_nlp forward + backward of sum(x**2); returns the solution, info and d loss / d p."""
+    import diffopt_tpu_torch as dtt
+
+    def step():
+        pr = p.detach().clone().requires_grad_()
+        sol, info = dtt.solve_nlp(nlp, pr, max_iters=NLP_MAX_ITERS, tol=NLP_TOL, with_info=True)
+        (sol.x**2).sum().backward()
+        return sol, info, pr.grad
+
+    return step
+
+
+def _capture_newton_system(run):
+    """The LDL' pair's inputs on the path: the last factorised matrix of ``run`` and the right-hand side of its
+    first solve (captured around the wrappers, which still launch and count)."""
+    from diffopt_tpu_torch.ops.cuda import chol
+
+    seen = {}
+    factor, solve = chol.ldl_batched, chol.ldl_solve_batched
+
+    def f(K, **kw):
+        seen["K"], seen["fresh"] = K, True
+        return factor(K, **kw)
+
+    def s(L, d, rhs, **kw):
+        if seen.pop("fresh", False):
+            seen["rhs"] = rhs
+        return solve(L, d, rhs, **kw)
+
+    # the wrappers count on whatever the module's names hold: give the stand-ins counters of their own
+    for w in (f, s):
+        w.launches, w.launches_by_shape = 0, collections.Counter()
+    chol.ldl_batched, chol.ldl_solve_batched = f, s
+    try:
+        run()
+    finally:
+        chol.ldl_batched, chol.ldl_solve_batched = factor, solve
+    return seen["K"].contiguous(), seen["rhs"].contiguous()
+
+
+def _count_syncs(fn):
+    """Calls that made the host wait on the card during ``fn()``, as CUDA's sync debug mode reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def _inst_rel(a, b):
+    """Per-instance max |a - b| relative to 1 + the instance's largest |b|, in f64."""
+    a, b = a.detach().double().flatten(1), b.detach().double().flatten(1)
+    return (a - b).abs().amax(1) / (1.0 + b.abs().amax(1))
+
+
+def phase_nlp(batch, gen):
+    """The NLP path at the shape of the JAX package's NLP benchmark (BASELINE config 4: n = 16, nc = 8 equalities,
+    B = 16384, f32, max_iters = 40, tol = 1e-6): the bench's step (solver + forward sensitivity dx) and solve_nlp
+    forward + backward of sum(x**2), a warm-up and three timed steps each; launch counts by shape, host syncs,
+    converged share; 512 instances of the path against the same calls routed through the plain K2 / K3 in f64 and
+    f32; and K2 / K3 held and timed on the path's own Newton systems (N = 24). Returns the kernels-line entries of
+    K2 at N = 24 and K3 at (24, 1), and the ``nlp`` line."""
+    from diffopt_tpu_torch import nlp_diff
+    from diffopt_tpu_torch.ops.cuda import chol
+    from diffopt_tpu_torch.solvers import nlp as nlpsolver
+    from diffopt_tpu_torch.utils.testing import NLP_BENCH_BATCH, NLP_BENCH_N, NLP_BENCH_NC, make_nlp_bench
+
+    B = min(batch, NLP_BENCH_BATCH)
+    N = NLP_BENCH_N + NLP_BENCH_NC
+    nlp, p, dp = make_nlp_bench(B, torch.float32, DEVICE)
+
+    # the path's own Newton systems: body 5's (at the first body every instance's matrix is the same, x = 0)
+    K, rhs = _capture_newton_system(lambda: nlpsolver.solve(nlp, p, max_iters=5, tol=NLP_TOL))
+    check(K.shape == (B, N, N) and rhs.shape == (B, N), f"[nlp]: captured Newton systems of shape {tuple(K.shape)}")
+
+    wrappers = reset_counts()
+    nlp_diff.factorize_with_inertia.host_syncs = nlpsolver.solve.host_syncs = 0
+    (sol, info, dx), med = timed_steps(_nlp_bench_step(nlp, p, dp), STEPS)
+    runs = STEPS + 1
+    launches = {k: w.launches for k, w in wrappers.items()}
+    by_shape = ldl_shape_launches()
+    syncs = (nlpsolver.solve.host_syncs + nlp_diff.factorize_with_inertia.host_syncs) / runs
+    print(f"[nlp] launches over {runs} bench steps: {launches}; K2 / K3 by shape {by_shape}; {syncs:.1f} host syncs a"
+          " step in the solver's loop and the inertia loop")
+    bodies = by_shape.get(f"ldl_factor_N{N}", 0)
+    check(set(by_shape) == {f"ldl_factor_N{N}", f"ldl_solve_N{N}_k1"}, f"[nlp]: K2 / K3 launched at {by_shape}")
+    check(bodies > 0 and by_shape[f"ldl_solve_N{N}_k1"] == 2 * bodies, "[nlp]: not one K2 and two K3 launches a body")
+    check(all(v == 0 for k, v in launches.items() if k not in ("ldl_factor", "ldl_solve")),
+          "[nlp]: a kernel of another path was launched")
+    check(all(bool(torch.isfinite(t).all()) for t in (*sol, dx)), "[nlp]: non-finite solution or sensitivity")
+    check(sol.x.shape == (B, NLP_BENCH_N) and sol.y.shape == (B, NLP_BENCH_NC) and dx.shape == (B, NLP_BENCH_N),
+          "[nlp]: wrong shapes")
+    conv = float(info.converged.float().mean())
+    its = info.iterations.float()
+    check(int(its.max()) * runs <= bodies, "[nlp]: an instance ran more bodies than K2 was launched")
+    print(f"[nlp] B={B} n={NLP_BENCH_N} nc={NLP_BENCH_NC} (N = {N}) f32: converged {conv:.4%}, max KKT error"
+          f" {float(info.kkt_residual.max()):.3e}, iterations mean {float(its.mean()):.2f} max {int(its.max())}")
+    check(conv >= 0.99, f"[nlp]: only {conv:.3%} of the instances converged")
+    sync_debug = _count_syncs(_nlp_bench_step(nlp, p, dp))
+
+    wrappers = reset_counts()
+    (vsol, vinfo, grad), vmed = timed_steps(_nlp_vjp_step(nlp, p), STEPS)
+    vby_shape = ldl_shape_launches()
+    check(all(bool(torch.isfinite(t).all()) for t in (*vsol, grad)), "[nlp]: non-finite solve_nlp output or gradient")
+    check(vby_shape.get(f"ldl_factor_N{N}", 0) > 0, "[nlp]: solve_nlp launched no K2")
+    check(float(_inst_rel(vsol.x, sol.x).max()) <= 1e-6, "[nlp]: solve_nlp and the solver differ on the same batch")
+
+    # the path against the same calls routed through the plain K2 / K3, on 512 instances, f64 and f32
+    sub = min(B, 512)
+    agreement = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        nlp_d = make_nlp_bench(1, dtype, DEVICE)[0]
+        ps, dps = p[:sub].to(dtype), dp[:sub].to(dtype)
+        wrappers = reset_counts()
+        ksol, kinfo, kdx = _nlp_bench_step(nlp_d, ps, dps)()
+        check(wrappers["ldl_factor"].launches > 0, f"[nlp] {tag}: the kernel route launched no K2")
+        with plain_kernels():
+            before = {k: w.launches for k, w in wrappers.items()}
+            psol, pinfo, pdx = _nlp_bench_step(nlp_d, ps, dps)()
+            check({k: w.launches for k, w in wrappers.items()} == before, "[nlp]: the plain route launched a kernel")
+        tol = TOL_NLP[dtype]
+        rec = {}
+        for name, a, b in (("x", ksol.x, psol.x), ("dx", kdx, pdx)):
+            d = _inst_rel(a, b)
+            share = float((d > tol[name][0]).float().mean())
+            rec[name] = dict(median=float(d.median()), max=float(d.max()), share_past_tol=share)
+            check(share <= tol["share"] and float(d.max()) <= tol[name][1],
+                  f"[nlp] {tag}: {name} parts from the plain route (past {tol[name][0]:.0e} on {share:.2%}, max"
+                  f" {float(d.max()):.3e})")
+        its_diff = float((kinfo.iterations != pinfo.iterations).float().mean())
+        agreement[tag] = dict(rec, iterations_differ=its_diff, converged=float(kinfo.converged.float().mean()),
+                              converged_plain=float(pinfo.converged.float().mean()))
+        print(f"[nlp] {tag} B={sub}: kernel route against the plain K2 / K3: x median {rec['x']['median']:.3e} max"
+              f" {rec['x']['max']:.3e} (past {tol['x'][0]:.0e} on {rec['x']['share_past_tol']:.2%}); dx median"
+              f" {rec['dx']['median']:.3e} max {rec['dx']['max']:.3e} (past {tol['dx'][0]:.0e} on"
+              f" {rec['dx']['share_past_tol']:.2%}); iteration counts differ on {its_diff:.2%}; converged"
+              f" {agreement[tag]['converged']:.2%} / {agreement[tag]['converged_plain']:.2%} (tol: at most"
+              f" {tol['share']:.0%} past, none past {tol['x'][1]:.0e} / {tol['dx'][1]:.0e})")
+
+    # K2 at N = 24 and K3 at (24, 1) on the path's own systems: held at every team, timed by CUDA-graph replay
+    recs = _hold_ldl(chol, K, rhs, True)
+    entries = {r["name"]: r for r in recs}
+
+    # an unpivoted LDL' of a Newton system with a zero pivot (what an indefinite Wt can give before the Levenberg
+    # shift grows) goes non-finite rather than raising, and the kernel and its plain version do so on the same
+    # instances: rows and columns 0, 7 and 20 of instances 3, 5 and 9 zeroed
+    Kz = K[:64].clone()
+    for i, j in ((3, 0), (5, 7), (9, 20)):
+        Kz[i, j, :] = 0.0
+        Kz[i, :, j] = 0.0
+    off = lambda L, d: ~(torch.isfinite(torch.tril(L, -1)).flatten(1).all(1) & torch.isfinite(d).all(1))
+    Lz, dz = chol.ldl_batched(Kz)
+    Lzp, dzp = chol.ldl_batched_plain(Kz)
+    xz, xzp = chol.ldl_solve_batched(Lz, dz, rhs[:64]), chol.ldl_solve_batched_plain(Lzp, dzp, rhs[:64])
+    bad = [off(Lz, dz), off(Lzp, dzp), ~torch.isfinite(xz).all(1), ~torch.isfinite(xzp).all(1)]
+    print(f"[nlp] K2 / K3 on 64 Newton systems, three with a zero pivot: non-finite instances "
+          f"{[sorted(b.nonzero().flatten().tolist()) for b in bad]} (kernel factor, plain factor, kernel solve, plain solve)")
+    check(all(sorted(b.nonzero().flatten().tolist()) == [3, 5, 9] for b in bad),
+          "[nlp]: K2 / K3 and their plain versions part on which instances go non-finite")
+    line = dict(instances_per_s=B / med, step_ms=med * 1e3, vjp_instances_per_s=B / vmed, vjp_step_ms=vmed * 1e3,
+                batch=B, n=NLP_BENCH_N, nc=NLP_BENCH_NC, converged=conv, mean_iterations=float(its.mean()),
+                max_iterations=int(its.max()), ldl_launches_per_step={k: v / runs for k, v in by_shape.items()},
+                host_syncs_per_step=syncs, host_syncs_sync_debug=sync_debug, agreement=agreement, runs=runs,
+                ldl_launches_by_shape=by_shape)
+    print(f"[nlp] one bench step under CUDA's sync debug mode: {sync_debug} calls made the host wait on the card")
+    return entries, line
+
+
+def _nlp_mixed(sense, device):
+    """A small NLP with every block of the KKT system: an equality, a <= and a >= row, finite lower and upper
+    bounds; the objective's sign follows the sense."""
+    import diffopt_tpu_torch as dtt
+
+    s = 1.0 if sense == "min" else -1.0
+    inf = float("inf")
+    return dtt.NLPProblem(
+        lambda x, p: s * (((x - p[:4]) ** 2).sum() + 0.1 * (x**4).sum() + 0.2 * x[0] * x[1] * p[6]),
+        lambda x, p: torch.stack([x.sum() - p[4], x[0] ** 2 + x[1] ** 2 - p[5], x[2] - x[3] - p[6]]),
+        ("eq", "leq", "geq"), 4, lb=[-1.0, -inf, 0.0, -inf], ub=[inf, 0.5, inf, 3.0], sense=sense, device=device)
+
+
+def phase_nlp_routes(gen):
+    """The NLP path's other entry points and routes at small batches, f64, each call on the card against the same
+    call on the host: the solver with every constraint kind and finite bounds, min and max, from x0; solve_nlp's
+    reverse and forward rules; NLPDiffContext; ParametricProgram(kind='nlp'); the route past 128 rows (the
+    library solve, no K2); an inertia-corrected singular KKT matrix; and bridges.qp_via_conic with its gradient
+    against solve_qp."""
+    import numpy as np
+    import torch.autograd.forward_ad as fwAD
+
+    import diffopt_tpu_torch as dtt
+    from diffopt_tpu_torch import bridges, nlp_diff
+    from diffopt_tpu_torch.solvers import nlp as nlpsolver
+
+    f64 = torch.float64
+    worst = {}
+
+    def hold(label, run, tol=TOL_NLP_ROUTES):
+        """run(device) -> tensors; the card's against the host's."""
+        on_card = [t.detach().cpu() for t in run(DEVICE)]
+        on_host = [t.detach() for t in run("cpu")]
+        err = max(float((a.double() - b.double()).abs().max() / (1.0 + b.double().abs().max()))
+                  for a, b in zip(on_card, on_host) if b.numel())
+        worst[label] = err
+        check(err <= tol, f"[nlp-routes] {label}: the card parts from the host by {err:.3e} (tol {tol:.0e})")
+        return on_card
+
+    rng = np.random.default_rng(1)
+    B = 16
+    P = np.concatenate([2.5 * rng.normal(size=(B, 4)) + np.array([-1.5, 1.0, 0.0, 0.0]),
+                        rng.uniform(-1.0, 1.0, size=(B, 1)), rng.uniform(0.2, 1.5, size=(B, 1)),
+                        rng.normal(size=(B, 1))], axis=1)
+    dP, seed = rng.normal(size=P.shape), rng.normal(size=(B, 4))
+    x0 = np.array([0.0, 0.0, 0.5, 0.5])
+    T = lambda a, dev: torch.tensor(a, dtype=f64, device=dev)
+    wrappers = reset_counts()
+    for sense in ("min", "max"):
+        def solve(dev):
+            sol, info = nlpsolver.solve(_nlp_mixed(sense, dev), T(P, dev), T(x0, dev), max_iters=60, tol=1e-10)
+            check(bool(info.converged.all()), f"[nlp-routes] {sense}: not converged on {dev}")
+            return (*sol, info.iterations.double())
+        hold(f"solver {sense}", solve)
+
+        def vjp(dev):
+            p = T(P, dev).requires_grad_()
+            sol = dtt.solve_nlp(_nlp_mixed(sense, dev), p, T(x0, dev), tol=1e-10)
+            ((sol.x**2).sum() + (sol.y**2).sum()).backward()
+            return (p.grad,)
+        hold(f"solve_nlp VJP {sense}", vjp)
+
+        def jvp(dev):
+            with fwAD.dual_level():
+                out = dtt.solve_nlp(_nlp_mixed(sense, dev), fwAD.make_dual(T(P, dev), T(dP, dev)), T(x0, dev),
+                                    tol=1e-10, mode="jvp")
+                return tuple(fwAD.unpack_dual(t).tangent for t in out)
+        hold(f"solve_nlp JVP {sense}", jvp)
+    check("ldl_factor_N9" in ldl_shape_launches(), f"[nlp-routes]: K2 not launched at N = 9 ({ldl_shape_launches()})")
+
+    def context(dev):
+        ctx = dtt.NLPDiffContext(_nlp_mixed("min", dev), T(P, dev), solver_kwargs=dict(tol=1e-10))
+        return (*ctx.forward(T(dP, dev))[:4], *ctx.jacobian()[:4], ctx.reverse(dx=T(seed, dev)))
+    hold("NLPDiffContext forward / jacobian / reverse", context)
+
+    def layer(dev):
+        scale = T([1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0], dev)
+        lay = dtt.ParametricProgram(lambda th: th * scale, kind="nlp", nlp=_nlp_mixed("min", dev), x0=T(x0, dev),
+                                    tol=1e-10)
+        th = T(P, dev)
+        return (lay.solve(th).x, lay.forward_differentiate(th, T(dP, dev)).x,
+                lay.reverse_differentiate(th, dx=T(seed, dev)))
+    hold("ParametricProgram(kind='nlp')", layer)
+
+    # past 128 rows: 100 variables, 10 >= rows, 10 equalities (len_w + nc = 130): the library solve on the card
+    n, ng, ne = 100, 10, 10
+    Am = np.random.default_rng(5).normal(size=(ng + ne, n)) / np.sqrt(n)
+    Pb = np.concatenate([rng.normal(size=(4, n)), 0.3 * rng.normal(size=(4, ng + ne))], axis=1)
+
+    def big(dev):
+        A = T(Am, dev)
+        nlp = dtt.NLPProblem(lambda x, p: ((x - p[:n]) ** 2).sum() + 0.05 * (x**4).sum(), lambda x, p: A @ x - p[n:],
+                             ("geq",) * ng + ("eq",) * ne, n, device=dev)
+        before = wrappers["ldl_factor"].launches
+        sol, info = nlpsolver.solve(nlp, T(Pb, dev), max_iters=30, tol=1e-10)
+        check(wrappers["ldl_factor"].launches == before, "[nlp-routes]: K2 was launched past 128 rows")
+        check(bool(info.converged.all()), f"[nlp-routes]: the route past 128 did not converge on {dev}")
+        return (*sol, info.iterations.double(), nlp_diff.forward_differentiate(nlp, sol, T(Pb, dev), T(Pb, dev)).dx)
+    hold("route past 128 rows (N = 130, library solve)", big)
+
+    # an inertia-corrected singular KKT matrix (duplicated active rows) beside a regular instance
+    def singular(dev):
+        nlp = dtt.NLPProblem(lambda x, p: x[0] ** 2, lambda x, p: torch.stack([x[0] - p[0], x[0] - p[1]]),
+                             ("geq", "geq"), 1, device=dev)
+        sol = dtt.NLPSolution(T([[2.0], [2.0]], dev), T([[2.0, 2.0], [4.0, 0.0]], dev), T([[0.0], [0.0]], dev),
+                              T([[0.0], [0.0]], dev))
+        Pi = T([[2.0, 2.0], [2.0, 1.0]], dev)
+        M, _, layout = nlp_diff.build_sensitivity_system(nlp, sol, Pi)
+        first = torch.linalg.lu_factor_ex(M)[0]
+        lu, piv, sing = nlp_diff.factorize_with_inertia(M, layout)
+        check(nlp_diff._is_singular(first, layout["total"]).tolist() == [True, False] and not bool(sing.any())
+              and torch.equal(lu[1], first[1]), f"[nlp-routes]: the inertia correction went wrong on {dev}")
+        fwd = nlp_diff.forward_differentiate(nlp, sol, Pi, torch.ones_like(Pi))
+        return lu, fwd.dx, fwd.dy
+    hold("inertia-corrected singular M", singular)
+
+    # bridges.qp_via_conic on the card against solve_qp on the card, and against itself on the host. At tol=1e-11
+    # the epigraph lowering's conic IPM ends at its floor, in the JAX package as here: its stall exit stops some
+    # instances with residuals of 1e-10 or a little more, just past the converged test (10 tol), and which ones
+    # depends on rounding (the card and the host part on two of these eight). So each conic solve, on the card and
+    # on the host, must end with primal and dual residuals under QP_VIA_CONIC_RESID; and two runs that round
+    # differently (the card's K2 / K3, the host's plain versions) are held at TOL_QP_VIA_CONIC.
+    # tests/test_torch_bridges.py holds the port and the JAX package on the same draw (made on the host) to both
+    from diffopt_tpu_torch.utils.testing import make_batch
+
+    qp = make_batch(8, 4, 3, 2, f64, "cpu", torch.Generator().manual_seed(gen.initial_seed())).map(
+        lambda t: t.to(DEVICE))
+    resid, flags = {}, {}
+
+    def via(dev):
+        q = qp.map(lambda t: t.detach().to(dev).requires_grad_())
+        sol = bridges.qp_via_conic(q, quadratic=True, tol=1e-11)
+        (sol.z**2).sum().backward()
+        _, info = dtt.solve_conic(bridges.qp_to_cone(q.map(torch.Tensor.detach), quadratic=True), tol=1e-11,
+                                  with_info=True)
+        resid[dev] = float(torch.maximum(info.primal_residual, info.dual_residual).max())
+        flags[dev] = info.converged.tolist()
+        return (*sol.tensors(), *(t.grad for t in q.tensors()))
+    cone = hold("bridges.qp_via_conic and its gradient", via, tol=TOL_QP_VIA_CONIC)
+    for dev, r in resid.items():
+        check(r < QP_VIA_CONIC_RESID, f"[nlp-routes] qp_via_conic: a conic solve on {dev} ended with a residual of"
+                                      f" {r:.3e} (limit {QP_VIA_CONIC_RESID:.0e})")
+    q = qp.map(lambda t: t.detach().clone().requires_grad_())
+    ref = dtt.solve_qp(q, tol=1e-11)
+    (ref.z**2).sum().backward()
+    zerr = float((cone[0] - ref.z.detach().cpu()).abs().max())
+    gerr = max(float((g - t.grad.cpu()).abs().max() / (1.0 + t.grad.abs().max().cpu())) for g, t in zip(cone[3:], q.tensors()))
+    print(f"[nlp-routes] bridges.qp_via_conic against solve_qp on the card, f64 B=8: |dz| {zerr:.3e} (tol 1e-5),"
+          f" gradients {gerr:.3e} relative (tol 2e-5); the conic solves' largest residual {resid[DEVICE]:.3e} on the"
+          f" card, {resid['cpu']:.3e} on the host (limit {QP_VIA_CONIC_RESID:.0e}), converged at tol 1e-11 on"
+          f" {flags[DEVICE]} and {flags['cpu']}")
+    check(zerr <= 1e-5 and gerr <= 2e-5, "[nlp-routes]: qp_via_conic disagrees with solve_qp")
+    print("[nlp-routes] the card against the host, f64, relative to 1 + the largest entry (tol "
+          f"{TOL_NLP_ROUTES:.0e}; qp_via_conic {TOL_QP_VIA_CONIC:.0e}): "
+          + "; ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=32768, help="instances in the batch (default: the full size)")
@@ -2247,9 +2634,13 @@ def main(argv=None):
     phase_conic_routes(gen)
     exp_launches, exp = phase_exp(args.batch)
     phase_ns_routes(gen)
+    nlp_entries, nlp = phase_nlp(args.batch, gen)
+    nlp_routes = phase_nlp_routes(gen)
+    entries.update(nlp_entries)
     # each kernel's count is read from the run of its own path: K1-K3 the QP main path's (K2 / K3 at N = 172:
-    # the [qp100] path's), K6 the conic path's, K7 the exp path's
-    own = {"conic_pdip": conic_launches, "ns_pdip": exp_launches, **{nm: qp100["ldl_launches_by_shape"] for nm in ldl_entries}}
+    # the [qp100] path's; at N = 24 the [nlp] path's), K6 the conic path's, K7 the exp path's
+    own = {"conic_pdip": conic_launches, "ns_pdip": exp_launches, **{nm: qp100["ldl_launches_by_shape"] for nm in ldl_entries},
+           **{nm: nlp["ldl_launches_by_shape"] for nm in nlp_entries}}
     # K4 / K5: one entry for each shape a path launched them at, with the count of the paths that did (the
     # staged QP path: n = 64 and 16; the gram route: n = 34 on [conic], 17 on [exp], 18 / 44 / 144 on
     # [sdp]; the condensed route on the [sdp] side 16: n = 3), and its launches per step on each; the
@@ -2272,6 +2663,8 @@ def main(argv=None):
         check(e["launches"] > 0, f"{name} was not launched on its path")
         if name.startswith("chol_"):
             e["launches_per_step"] = per_step[name]
+        if name in nlp_entries:
+            e["launches_per_step"] = {"nlp": e["launches"] / nlp["runs"]}
     print(
         f"[main] {rate:.1f} QP solves+VJPs per second (median step {step_s * 1e3:.2f} ms, B = {args.batch}) on {card}"
     )
@@ -2292,6 +2685,11 @@ def main(argv=None):
     print(f"[exp] {exp['solves_vjps_per_s']:.1f} entropy solves+VJPs per second (median step {exp['step_ms']:.2f} ms,"
           f" B = {exp['batch']}) on {card}")
     print(json.dumps({"exp": {**exp, "ns_pdip_agreement": entries["ns_pdip"].pop("agreement"), "card": card}}))
+    print(f"[nlp] {nlp['instances_per_s']:.1f} NLP solves+sensitivities per second (median step {nlp['step_ms']:.2f} ms,"
+          f" B = {nlp['batch']}), {nlp['vjp_instances_per_s']:.1f} solve_nlp solves+VJPs per second (median step"
+          f" {nlp['vjp_step_ms']:.2f} ms) on {card}")
+    print(json.dumps({"nlp": {**{k: v for k, v in nlp.items() if k != "ldl_launches_by_shape"},
+                              "routes_card_vs_host": nlp_routes, "card": card}}))
     print(json.dumps({"k6_teams": {**entries["conic_pdip"].pop("k6_teams"), "card": card}}))
     print(json.dumps({"k7_teams": {**entries["ns_pdip"].pop("k7_teams"), "card": card}}))
     print(json.dumps({"k1_teams": {**k1_teams, "card": card}}))

@@ -20,20 +20,25 @@ reverse and forward rules), the cones and their projections, ``conic_diff``,
 and the nonsymmetric-cone path — exp / dual_exp / pow / dual_pow blocks in
 every conic verb, the fused dual-scaling IPM kernel behind
 ``solve_conic_batched``, the staged nonsymmetric IPM and the DR splitting
-behind ``solve_conic(solver="nsipm"|"dr")``. The NLP path, the bridges and
-the multi-device modules come with later slices.
+behind ``solve_conic(solver="nsipm"|"dr")``; the NLP path — ``nlp_diff``
+(the sIpopt sensitivity verbs), the embedded interior-point solver
+(``solvers/nlp.py``, its Newton systems on the LDL' kernels), ``solve_nlp``,
+``NLPDiffContext`` and ``ParametricProgram(kind="nlp")``; and the
+differentiable rewrites of ``bridges``. ``native/``, the examples and the
+multi-device modules (``parallel/``) come with later slices.
 """
 
 from .ir import ConeProgram, ConeSolution, ConeTangent, QPSolution, QPTangent, QuadProgram
 from .cones import ConeSpec
 from .qp_diff import forward_differentiate, reverse_differentiate
-from .solve import solve_conic, solve_conic_batched, solve_qp, solve_qp_batched
+from .nlp_diff import NLPProblem, NLPSolution
+from .solve import solve_conic, solve_conic_batched, solve_nlp, solve_qp, solve_qp_batched
 from .solvers.conic import ConicSolveInfo
 from .solvers.qp import QPSolveInfo, kkt_metrics
-from .api import ConicDiffContext, NotSolvedError, QPDiffContext
+from .api import ConicDiffContext, NLPDiffContext, NotSolvedError, QPDiffContext
 from .parameters import ParametricProgram
 from .utils.config import DiffOptConfig, get_config, set_config, use_config
-from . import conic_diff, convert, parameters, qp_diff, utils
+from . import bridges, conic_diff, convert, nlp_diff, parameters, qp_diff, utils
 
 __version__ = "0.1.0"
 
@@ -51,6 +56,12 @@ __all__ = [
     "solve_conic",
     "solve_conic_batched",
     "ConicDiffContext",
+    "NLPProblem",
+    "NLPSolution",
+    "NLPDiffContext",
+    "solve_nlp",
+    "nlp_diff",
+    "bridges",
     "forward_differentiate",
     "reverse_differentiate",
     "solve_qp",

@@ -3,8 +3,6 @@
 Counterpart of ``diffopt_tpu/api.py``. What is worth caching when a user
 differentiates the same solved program repeatedly with different seeds is the
 *numeric factorization* of the KKT Jacobian; :class:`QPDiffContext` does
-exactly that.
-
 exactly that; :class:`ConicDiffContext` caches the residual map's gram
 factorizations (or, past the LSQR threshold, the prepared matrix-free
 operator).
@@ -14,9 +12,10 @@ solvers, and this host-side wrapper raises. ``differentiate_time_sec`` is the
 wall time of the last ``forward`` / ``reverse`` call (taken after
 ``torch.cuda.synchronize()`` when the tensors live on a card).
 
-Both contexts take one instance (fields without a batch dimension) or a
+The contexts take one instance (fields without a batch dimension) or a
 ``(B, ...)`` batch; an instance gets a batch dimension on the way in and
-loses it on the way out. The NLP context comes with its slice of the port.
+loses it on the way out. :class:`NLPDiffContext` caches the LU (with inertia
+correction) of an NLP's KKT Jacobian.
 """
 
 from __future__ import annotations
@@ -47,7 +46,9 @@ def _lead(t: Tensor) -> Tensor:
 
 
 def _drop(struct):
-    """Remove the batch dimension the context added (any NamedTuple or struct of tensors)."""
+    """Remove the batch dimension the context added (a tensor, any NamedTuple or struct of tensors)."""
+    if isinstance(struct, Tensor):
+        return struct[0]
     if hasattr(struct, "map"):
         return struct.map(lambda t: t[0])
     return type(struct)(*(t[0] for t in struct))
@@ -276,3 +277,76 @@ class ConicDiffContext:
             return conic_diff._reverse_from(cp, sol, _cones.pi(cp.cones, v), g)
 
         return self._timed(run)
+
+
+class NLPDiffContext:
+    """NLP analogue of :class:`QPDiffContext`: solve (optionally), assemble
+    and LU-factorize the KKT Jacobian ``M`` once (with the inertia correction
+    of :func:`~diffopt_tpu_torch.nlp_diff.factorize_with_inertia`, or
+    ``factorization``), then differentiate many — both directions reuse the
+    factorization. ``p`` is one instance ``(np,)`` or a ``(B, np)`` batch on
+    the problem's device; ``sol`` (optional) in the same form."""
+
+    @full_precision
+    def __init__(
+        self,
+        nlp,
+        p,
+        sol=None,
+        *,
+        check: bool = True,
+        factorization=None,
+        solver_kwargs: Optional[dict] = None,
+    ):
+        from . import nlp_diff
+        from .solvers import nlp as nlpsolver
+
+        self.nlp = nlp
+        self.p = nlp.param(p)
+        self._single = self.p.ndim == 1
+        p = self.p[None] if self._single else self.p
+        if self._single and sol is not None:
+            sol = sol.map(_lead)
+        t0 = time.perf_counter()
+        if sol is None:
+            sol, info = nlpsolver.solve(nlp, p, **(solver_kwargs or {}))
+            self.solve_info = _drop(info) if self._single else info
+            if check and not bool(info.converged.all()):
+                raise NotSolvedError(
+                    "cannot differentiate: NLP solver did not converge "
+                    f"(KKT residual {float(info.kkt_residual.max()):.2e})"
+                )
+        else:
+            self.solve_info = None
+        self.sol = _drop(sol) if self._single else sol
+        # (layout, lu, piv, singular, N): what the three verbs below solve with
+        self._factor = nlp_diff._factored(nlp, sol, p, factorization)
+        self.differentiate_time_sec = float("nan")
+        self._factor_time_sec = time.perf_counter() - t0
+
+    _timed = QPDiffContext._timed
+
+    @full_precision
+    def forward(self, dp):
+        """Directional sensitivity with the cached factorization."""
+        from . import nlp_diff
+
+        N = self._factor[-1]
+        dp = torch.as_tensor(dp, dtype=N.dtype, device=N.device)
+        dp = dp[None] if self._single else dp
+        return self._timed(lambda: nlp_diff.tangent_from_factor(self.nlp, *self._factor, dp))
+
+    @full_precision
+    def jacobian(self):
+        """Full ``ds/dp`` with the cached factorization."""
+        from . import nlp_diff
+
+        return self._timed(lambda: nlp_diff.jacobian_from_factor(self.nlp, *self._factor))
+
+    @full_precision
+    def reverse(self, dx=None, dy=None, dzL=None, dzU=None):
+        """Parameter cotangent via one transposed solve on the cached LU."""
+        from . import nlp_diff
+
+        seeds = [None if t is None else (t[None] if self._single else t) for t in (dx, dy, dzL, dzU)]
+        return self._timed(lambda: nlp_diff.cotangent_from_factor(self.nlp, *self._factor, *seeds))

@@ -16,6 +16,7 @@ import torch
 
 from .cones import ConeSpec
 from .ir import ConeProgram, ConeSolution, ConeTangent, QPSolution, QPTangent, QuadProgram
+from .nlp_diff import NLPProblem, NLPSolution
 from .ops.kkt import KKTSplit
 from .solvers.conic import ConicSolveInfo
 from .solvers.qp import QPSolveInfo
@@ -88,6 +89,19 @@ def conicsolveinfo_from_numpy(src, *, device) -> ConicSolveInfo:
     field keeps its own dtype."""
     get = (lambda k: src[k]) if isinstance(src, dict) else (lambda k: getattr(src, k))
     return ConicSolveInfo(*(torch.tensor(np.asarray(get(k)), device=device) for k in ConicSolveInfo._fields))
+
+
+def nlpsolution_from_numpy(src, *, dtype, device) -> NLPSolution:
+    """``src``: an object or dict with array-like ``x, y, zL, zU``."""
+    return _from_fields(NLPSolution, src, dtype, device)
+
+
+def nlpproblem_like(src, objective, constraints, *, device) -> NLPProblem:
+    """An :class:`~diffopt_tpu_torch.nlp_diff.NLPProblem` with the static structure of ``src`` (any object
+    with ``kinds``, ``n``, ``lb``, ``ub`` and ``sense``, a ``diffopt_tpu.NLPProblem`` included) and the
+    torch callables ``objective(x, p)`` / ``constraints(x, p)``."""
+    return NLPProblem(objective, constraints, src.kinds, src.n, lb=np.asarray(src.lb), ub=np.asarray(src.ub),
+                      sense=src.sense, device=device)
 
 
 def to_numpy(struct) -> dict:

@@ -28,6 +28,15 @@ import torch
 Tensor = torch.Tensor
 
 
+def default_device(device, what: str) -> torch.device:
+    """``device`` if given, else the card; raises where there is none (name ``"cpu"`` for the host)."""
+    if device is not None:
+        return torch.device(device)
+    if torch.cuda.is_available():
+        return torch.device("cuda")
+    raise RuntimeError(f'{what}: no device given and no CUDA device available; pass device="cpu" to run on the host')
+
+
 class _TensorStruct:
     """Shared ``.to`` / field iteration for the dataclasses below."""
 
@@ -84,15 +93,7 @@ class QuadProgram(_TensorStruct):
         name ``device="cpu"`` to build on the host."""
         if device is None:
             given = [x for x in (q, Q, A, b, G, h) if isinstance(x, torch.Tensor)]
-            if given:
-                device = given[0].device
-            elif torch.cuda.is_available():
-                device = torch.device("cuda")
-            else:
-                raise RuntimeError(
-                    "QuadProgram.make: no device given and no CUDA device available; "
-                    'pass device="cpu" to build on the host'
-                )
+            device = given[0].device if given else default_device(None, "QuadProgram.make")
         as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
         if q is not None:
             q = as_t(q)

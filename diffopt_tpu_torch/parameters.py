@@ -14,8 +14,15 @@ mode) — every op in ``build`` must support the mode that is used.
 
 ``theta`` is a tensor or any nesting of dicts, lists and tuples of tensors.
 ``kind="conic"`` takes ``build(theta) -> ConeProgram`` and solves through
-:func:`~diffopt_tpu_torch.solve_conic` (seeds ``dx=``, ``dy=``, ``ds=``);
-``kind="nlp"`` comes with the NLP slice of the port.
+:func:`~diffopt_tpu_torch.solve_conic` (seeds ``dx=``, ``dy=``, ``ds=``).
+NLP programs take ``build(theta) -> p``, the parameter vector of the static
+:class:`~diffopt_tpu_torch.nlp_diff.NLPProblem` given as ``nlp=``, and solve
+through :func:`~diffopt_tpu_torch.solve_nlp` (seeds ``dx=``, ``dy=``,
+``dzL=``, ``dzU=``)::
+
+    layer = ParametricProgram(build, kind="nlp", nlp=my_nlp_problem)
+    sol   = layer.solve(theta)                       # NLPSolution, differentiable
+    dth   = layer.reverse_differentiate(theta, dx=...)
 """
 
 from __future__ import annotations
@@ -26,33 +33,41 @@ import torch
 import torch.autograd.forward_ad as fwAD
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
-from .solve import solve_conic, solve_qp
+from .solve import solve_conic, solve_nlp, solve_qp
 
-_NLP_WAITING = "kind='nlp' waits for the NLP slice of the port (nlp_diff.py, solvers/nlp.py, solve_nlp)"
-_SEEDS = {"qp": ("dz", "dlam", "dnu"), "conic": ("dx", "dy", "ds")}
+_SEEDS = {"qp": ("dz", "dlam", "dnu"), "conic": ("dx", "dy", "ds"), "nlp": ("dx", "dy", "dzL", "dzU")}
 
 
 class ParametricProgram:
     """A program whose data is an arbitrary differentiable function of
     parameters. ``build(theta)`` must return a
-    :class:`~diffopt_tpu_torch.ir.QuadProgram` (``kind='qp'``) or a
+    :class:`~diffopt_tpu_torch.ir.QuadProgram` (``kind='qp'``), a
     :class:`~diffopt_tpu_torch.ir.ConeProgram` (``kind='conic'``), one
-    instance or a batch; ``solve_options`` go to
-    :func:`~diffopt_tpu_torch.solve_qp` / :func:`~diffopt_tpu_torch.solve_conic`.
+    instance or a batch, or the NLP parameter vector ``p`` (``kind='nlp'``,
+    which also needs the static ``nlp=``
+    :class:`~diffopt_tpu_torch.nlp_diff.NLPProblem`); ``solve_options`` go to
+    :func:`~diffopt_tpu_torch.solve_qp` / :func:`~diffopt_tpu_torch.solve_conic`
+    / :func:`~diffopt_tpu_torch.solve_nlp`.
     """
 
-    def __init__(self, build: Callable, kind: str = "qp", **solve_options):
+    def __init__(self, build: Callable, kind: str = "qp", nlp=None, **solve_options):
         if kind not in ("qp", "conic", "nlp"):
             raise ValueError("kind must be 'qp', 'conic' or 'nlp'")
-        if kind == "nlp":
-            raise NotImplementedError(_NLP_WAITING)
+        if kind == "nlp" and nlp is None:
+            raise ValueError("kind='nlp' needs the static nlp=NLPProblem(...)")
+        if kind != "nlp" and nlp is not None:
+            raise ValueError("nlp= is only meaningful with kind='nlp'")
         self.build = build
         self.kind = kind
+        self.nlp = nlp
         self.solve_options = dict(solve_options)
 
     def _solve(self, theta, mode: str):
+        prog = self.build(theta)
+        if self.kind == "nlp":
+            return solve_nlp(self.nlp, prog, mode=mode, **self.solve_options)
         solve = solve_qp if self.kind == "qp" else solve_conic
-        return solve(self.build(theta), mode=mode, **self.solve_options)
+        return solve(prog, mode=mode, **self.solve_options)
 
     def solve(self, theta):
         """Differentiable solve (reverse-mode ready: call ``backward`` on a
@@ -74,8 +89,9 @@ class ParametricProgram:
 
     def reverse_differentiate(self, theta, **seeds):
         """VJP: parameter cotangents (same structure as ``theta``) for
-        solution seeds ``dz=...`` and optionally ``dlam=`` / ``dnu=`` (QP), or
-        ``dx=`` / ``dy=`` / ``ds=`` (conic)."""
+        solution seeds ``dz=...`` and optionally ``dlam=`` / ``dnu=`` (QP),
+        ``dx=`` / ``dy=`` / ``ds=`` (conic), or ``dx=`` / ``dy=`` / ``dzL=`` /
+        ``dzU=`` (NLP)."""
         leaves, spec = tree_flatten(theta)
         leaves = [t.detach().requires_grad_() for t in leaves]
         sol = self._solve(tree_unflatten(leaves, spec), "vjp")

@@ -9,7 +9,8 @@ reverse and a forward rule; ``solve_qp_batched`` runs the fused single-kernel
 solver with the polish and the LDL' adjoint. ``solve_conic`` and
 ``solve_conic_batched`` are their conic counterparts: the staged NT-scaled
 IPM with both rules, and the fused conic kernel with the ``gram`` polish and
-adjoint.
+adjoint. ``solve_nlp`` runs the embedded NLP interior-point solver with the
+sIpopt reverse and forward rules.
 """
 
 from __future__ import annotations
@@ -359,3 +360,85 @@ def solve_conic_batched(
     cfg = get_config()
     polish = cfg.conic_polish_steps(cp.A.dtype) if polish is None else polish
     return _run_conic(cp, "fused", max_iters, tol, None, method, refine_iters, polish, with_info, cfg.nan_on_unconverged)
+
+
+# ---------------------------------------------------------------------------
+# NLP
+# ---------------------------------------------------------------------------
+
+from . import nlp_diff  # noqa: E402
+from .nlp_diff import NLPProblem, NLPSolution  # noqa: E402
+from .solvers import nlp as nlpsolver  # noqa: E402
+from .solvers.nlp import NLPSolveInfo  # noqa: E402
+
+
+class _SolveNLP(torch.autograd.Function):
+    """forward: the embedded interior-point solver -> poison; backward: the sIpopt reverse rule
+    (``nlp_diff.reverse_differentiate``); jvp: its forward rule. ``x0`` (a warm start) gets no
+    gradient: the solution map of a local optimum does not depend on the start point."""
+
+    @staticmethod
+    def forward(ctx, p, x0, nlp, max_iters, tol, with_info, poison):
+        p = p.detach()
+        sol, info = nlpsolver.solve(nlp, p, x0, max_iters=max_iters, tol=tol)
+        if poison:
+            sol = _poison_unconverged(sol, info.converged)
+        ctx.save_for_backward(p, *sol)
+        ctx.save_for_forward(p, *sol)
+        ctx.nlp, ctx.with_info = nlp, with_info
+        if with_info:
+            ctx.mark_non_differentiable(*info)
+            return (*sol, *info)
+        return tuple(sol)
+
+    @staticmethod
+    def backward(ctx, gx, gy, gzL, gzU, *_info_grads):
+        p, *sol = ctx.saved_tensors
+        dp = nlp_diff.reverse_differentiate(ctx.nlp, NLPSolution(*sol), p, dx=gx, dy=gy, dzL=gzL, dzU=gzU)
+        return (dp,) + (None,) * 6
+
+    @staticmethod
+    def jvp(ctx, dp, *_options):
+        p, *sol = ctx.saved_tensors
+        # a parameter without a tangent arrives as None: a zero perturbation
+        dp = torch.zeros_like(p) if dp is None else dp
+        fwd = nlp_diff.forward_differentiate(ctx.nlp, NLPSolution(*sol), p, dp)
+        return (fwd.dx, fwd.dy, fwd.dzL, fwd.dzU) + ((None,) * 5 if ctx.with_info else ())
+
+
+@full_precision
+def solve_nlp(
+    nlp: NLPProblem,
+    p,
+    x0=None,
+    *,
+    max_iters: int | None = None,
+    tol: float | None = None,
+    mode: str = "vjp",
+    with_info: bool = False,
+):
+    """Solve a parameterized NLP and make the full primal-dual solution
+    differentiable w.r.t. ``p`` (implicit sIpopt sensitivity at the local
+    optimum, :mod:`diffopt_tpu_torch.nlp_diff`). ``p`` is one instance
+    ``(np,)`` or a ``(B, np)`` batch, on the problem's device.
+
+    ``x0`` (optional warm start) is treated as non-differentiable. Both AD
+    rules sit on one ``torch.autograd.Function`` (``backward`` and ``jvp``);
+    ``mode`` ('vjp' or 'jvp') is kept for parity with the JAX package, where it
+    picks which rule is registered; values are identical.
+
+    ``with_info=True`` returns ``(sol, info)`` with the solver's
+    :class:`~diffopt_tpu_torch.solvers.nlp.NLPSolveInfo` as a
+    non-differentiable output; with ``config.nan_on_unconverged`` unconverged
+    instances are NaN-poisoned instead of silently wrong."""
+    if mode not in ("vjp", "jvp"):
+        raise ValueError(f"mode must be 'vjp' or 'jvp', got {mode!r}")
+    p = nlp.param(p)
+    single = p.ndim == 1
+    if single:
+        p = p[None]
+    out = _SolveNLP.apply(p, x0, nlp, max_iters, tol, with_info, get_config().nan_on_unconverged)
+    if single:
+        out = tuple(t[0] for t in out)
+    sol = NLPSolution(*out[:4])
+    return (sol, NLPSolveInfo(*out[4:])) if with_info else sol

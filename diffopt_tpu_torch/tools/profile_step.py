@@ -1,6 +1,6 @@
 """Where one solve + VJP step spends its device time.
 
-    python3 -m diffopt_tpu_torch.tools.profile_step [--batch 32768] [--path main|staged|qp100|conic|exp|sdp] [--side 16]
+    python3 -m diffopt_tpu_torch.tools.profile_step [--batch 32768] [--path main|staged|qp100|conic|exp|sdp|nlp] [--side 16]
 
 Runs one step forward + backward once to warm up and once under
 ``torch.profiler``, and prints the device time by kernel, the step's wall
@@ -17,8 +17,13 @@ with its defaults (fused nonsymmetric IPM K7, gram polish and VJP) on the
 entropy family of the exp benchmark (k = 3, f32; ``--batch`` is capped at its
 16384); ``--path sdp`` is ``solve_conic_batched`` with its defaults on the SDP
 family of ``chip_smoke.py``'s ``[sdp]`` line (n = 3, psd side ``--side`` and
-SOC(4), f32; ``--batch`` is capped at its 4096). The host syncs and the step's time without the profiler are printed
-too.
+SOC(4), f32; ``--batch`` is capped at its 4096); ``--path nlp`` is the NLP
+benchmark's step (the embedded NLP solver, ``max_iters=40, tol=1e-6``, then
+``nlp_diff.forward_differentiate(...).dx``) on its problem (n = 16, nc = 8
+equalities, f32; ``--batch`` is capped at its 16384), with the device time of
+K2, K3, the sensitivity LU and the rest (the ``torch.func`` derivatives and
+elementwise glue). The host syncs and the step's time without the profiler are
+printed too.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=32768)
-    ap.add_argument("--path", choices=("main", "staged", "qp100", "conic", "exp", "sdp"), default="main",
+    ap.add_argument("--path", choices=("main", "staged", "qp100", "conic", "exp", "sdp", "nlp"), default="main",
                     help="which entry point to profile")
     ap.add_argument("--side", type=int, default=16, help="psd side of --path sdp")
     ap.add_argument("--rows", type=int, default=16, help="rows of the table")
@@ -48,7 +53,12 @@ def main():
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    if args.path == "conic":
+    if args.path == "nlp":
+        from diffopt_tpu_torch.utils.testing import NLP_BENCH_BATCH, make_nlp_bench
+
+        args.batch = min(args.batch, NLP_BENCH_BATCH)
+        nlp, nlp_p, nlp_dp = make_nlp_bench(args.batch)
+    elif args.path == "conic":
         prog = make_socp_batch(args.batch, n=16, seed=0).map(lambda t: t.requires_grad_())
     elif args.path == "exp":
         args.batch = min(args.batch, 16384)
@@ -62,11 +72,17 @@ def main():
     else:
         prog = make_batch(args.batch, 64, 32, 16, torch.float32, "cuda", gen).map(lambda t: t.requires_grad_())
 
+    from diffopt_tpu_torch import nlp_diff
     from diffopt_tpu_torch.ops import kkt
     from diffopt_tpu_torch.solvers import conic_ipm, conic_nsipm
+    from diffopt_tpu_torch.solvers import nlp as nlpsolver
     from diffopt_tpu_torch.solvers import qp as qpsolver
 
     def step():
+        if args.path == "nlp":
+            sol, _ = nlpsolver.solve(nlp, nlp_p, max_iters=40, tol=1e-6)
+            nlp_diff.forward_differentiate(nlp, sol, nlp_p, nlp_dp)
+            return
         for t in prog.tensors():
             t.grad = None
         if args.path in ("main", "qp100"):
@@ -80,7 +96,8 @@ def main():
         (sol.tensors()[0] ** 2).sum().backward()
 
     count_syncs = lambda: (qpsolver.solve_batched.host_syncs + kkt._auto_solve.host_syncs
-                           + conic_ipm.solve_batched.host_syncs + conic_nsipm.solve_batched.host_syncs)
+                           + conic_ipm.solve_batched.host_syncs + conic_nsipm.solve_batched.host_syncs
+                           + nlpsolver.solve.host_syncs + nlp_diff.factorize_with_inertia.host_syncs)
     step()
     torch.cuda.synchronize()
     syncs = count_syncs()
@@ -110,7 +127,8 @@ def main():
     print(
         f"device busy {busy_ms:.2f} ms of a {wall_ms:.2f} ms step under the profiler"
         f" (idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}), {bare_ms:.2f} ms without it, {syncs} host syncs"
-        f" in the solvers' loops and the 'auto' KKT route; path = {args.path}, B = {args.batch}, on {card}"
+        f" in the solvers' loops, the inertia loop and the 'auto' KKT route; path = {args.path}, B = {args.batch},"
+        f" on {card}"
     )
     by = lambda *keys: sum(e.self_device_time_total for e in events if any(k in e.key for k in keys)) / 1e3
     # (K3 and K5 are one kernel template, tri_solve_kernel, told apart by its diagonal policy)
@@ -120,6 +138,15 @@ def main():
     own_ms = sum(ours.values())
     print("hand-written kernels: " + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items() if v)
           + f"; everything else (PyTorch glue and library calls) {busy_ms - own_ms:.2f} ms of {busy_ms:.2f} ms busy")
+    if args.path == "nlp":
+        # the sensitivity's LU factor and solve (and the solver's library route, were N past 128) by kernel name
+        lu_keys = ("getrf", "getrs", "lu_factor", "lu_solve", "laswp", "trsm", "trsv")
+        lu_ms = by(*lu_keys)
+        glue_ms = busy_ms - own_ms - lu_ms
+        n_glue = sum(e.count for e in events if not any(k in e.key for k in ("ldl_factor_", "LdlDiag") + lu_keys))
+        print(f"nlp step: K2 {ours['K2 ldl_factor']:.2f} ms, K3 {ours['K3 ldl_solve']:.2f} ms, the LU {lu_ms:.2f} ms,"
+              f" the rest (torch.func derivatives, the residuals and elementwise glue) {glue_ms:.2f} ms in {n_glue}"
+              f" kernel launches")
 
 
 if __name__ == "__main__":

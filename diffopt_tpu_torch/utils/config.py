@@ -87,6 +87,15 @@ class DiffOptConfig:
     # loops); pair with solve_*(..., with_info=True) to inspect instead.
     nan_on_unconverged: bool = False
 
+    # --- embedded NLP interior-point solver (solvers/nlp.py) ------------------
+    nlp_max_iters: int = 100
+    nlp_tol: float = 1e-9
+
+    # --- NLP sensitivity (nlp_diff.factorize_with_inertia) --------------------
+    # the reference's shift and its cap of corrections
+    inertia_shift: float = 1e-6
+    inertia_max_corrections: int = 50
+
     # ------------------------------------------------------------------------
     def qp_tol(self, dtype) -> float:
         return self.qp_tol_f64 if dtype == torch.float64 else self.qp_tol_f32

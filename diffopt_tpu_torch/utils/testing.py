@@ -248,3 +248,34 @@ def ns_internal_rows(cp):
     A = torch.einsum("ij,bjk->bik", R, cp.A)
     b = cp.b @ R.T
     return (cp.c, b[:, :p], b[:, p:], A[:, :p], A[:, p:]), (p, l, socs, ns)
+
+
+NLP_BENCH_N, NLP_BENCH_NC, NLP_BENCH_BATCH = 16, 8, 16384
+
+
+def make_nlp_bench(B=NLP_BENCH_BATCH, dtype=torch.float32, device="cuda"):
+    """The NLP of the JAX package's NLP benchmark (BASELINE config 4; ``benchmarks/nlp_bench.py``):
+    ``min sum((W x - p[:n])^2) + 0.1 sum(x^4)  s.t.  A x = p[n:]``, n = 16, nc = 8 equalities, ``W``, ``A``
+    and the batch of ``p`` and of the tangents ``dp`` from ``numpy.random.default_rng(0)`` in the
+    benchmark's order (f32 draws; at B = 16384 the benchmark's own numbers, cast to ``dtype``).
+    Returns ``(nlp, p (B, n + nc), dp (B, n + nc))`` on ``device``."""
+    import numpy as np
+
+    from ..nlp_diff import NLPProblem
+
+    n, nc = NLP_BENCH_N, NLP_BENCH_NC
+    rng = np.random.default_rng(0)
+    Wm = rng.normal(size=(n, n)).astype(np.float32)
+    Am = rng.normal(size=(nc, n)).astype(np.float32)
+    p = rng.normal(size=(B, n + nc)).astype(np.float32)
+    dp = rng.normal(size=(B, n + nc)).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=device).to(dtype)
+    W, A = t(Wm), t(Am)
+    nlp = NLPProblem(
+        objective=lambda x, p_: ((W @ x - p_[:n]) ** 2).sum() + 0.1 * (x**4).sum(),
+        constraints=lambda x, p_: A @ x - p_[n:],
+        kinds=("eq",) * nc,
+        n=n,
+        device=device,
+    )
+    return nlp, t(p), t(dp)

@@ -169,10 +169,13 @@ def test_parametric_program_quadratic_and_bilinear_parameters_dict_theta():
     dth = layer.reverse_differentiate(theta, dz=torch.tensor([1.0], dtype=torch.float64))
     assert set(dth) == {"p", "c"}
     np.testing.assert_allclose([float(dth["p"]), float(dth["c"])], [3.5, -10.0 / 4.0], rtol=0, atol=1e-5)
-    # no seed, no gradient; the kind of a later slice says what it waits for
+    # no seed, no gradient; kind="nlp" needs its static nlp= and nlp= needs kind="nlp", as in the JAX package
     assert float(layer.reverse_differentiate(theta)["p"]) == 0.0
-    with pytest.raises(NotImplementedError, match="waits for"):
+    with pytest.raises(ValueError, match="nlp="):
         dtt.ParametricProgram(build, kind="nlp")
+    nlp = dtt.NLPProblem(lambda x, p: (x**2).sum(), None, (), 1, device="cpu")
+    with pytest.raises(ValueError, match="nlp="):
+        dtt.ParametricProgram(build, kind="qp", nlp=nlp)
     with pytest.raises(ValueError):
         dtt.ParametricProgram(build, kind="sdp")
 

@@ -81,10 +81,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    bounds, min and max, ``solve_nlp``'s reverse and forward rules,
    ``NLPDiffContext``, ``ParametricProgram(kind="nlp")``, the route past 128
    rows, an inertia-corrected singular KKT matrix and ``bridges.qp_via_conic``
-   with its gradient against ``solve_qp``;
-9. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``,
-   ``exp``, ``nlp``, ``k6_teams``, ``k7_teams``, ``k1_teams``, ``chol_teams``, ``ldl_teams`` and
-   ``{"kernels": [...]}`` (K1-K7; K2 and K3 at N = 112, 172 and 24, K4 and K5 one
+   with its gradient against ``solve_qp``; the f32 NLP routes (K2 / K3 and
+   their plain versions) are each held against the f64 solution of the same
+   512 instances;
+9. the two-stage Schur path (``[two-stage]``, BASELINE config 5): the JAX
+   package's two-stage bench's step (``solve_two_stage``, then
+   ``two_stage_forward_sensitivity`` along the data, loss ``sum(z**2) +
+   sum(dxs**2)``; n = 8, m = 4, p = 2, c = 4, f32) at S = 8192 and S = 100,000,
+   a warm-up and three timed steps each (launch counts by shape: one K2 and
+   K3 at k = c, 1, 1 a Schur solve, one Schur solve to start and two a body,
+   one for the sensitivity; host syncs; the global converged flag, the
+   residuals and bodies; z and xs of the solution and of the sensitivity
+   against the f64 step on the same data, whose solve must converge), K2 at
+   N = 10 / 14 and K3 at (10, 4), (10, 1), (14, 4), (14, 1) held and timed on the path's own
+   systems (S = 8192), and the same step in a one-process NCCL group, which
+   must give the ``group=None`` run's bits;
+10. ``[native]``: the C++ packer builds and agrees with ``np.add.at``, its
+   batches on the card;
+11. ``[examples]``: every ``examples/*_torch.py`` on the card at its file's
+   sizes, held to its closed form (ReLU and its gradient, the dispatch and
+   ridge sensitivities, Higham's nearest correlation matrix, the
+   unit-commitment prices, softmax and its Jacobian), its outputs on the card;
+12. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``,
+   ``exp``, ``nlp``, ``two_stage``, ``k6_teams``, ``k7_teams``, ``k1_teams``, ``chol_teams``, ``ldl_teams`` and
+   ``{"kernels": [...]}`` (K1-K7; K2 and K3 at N = 112, 172, 24, 10 and 14, K4 and K5 one
    entry per shape a path launched them at, with its launches per step on
    each path),
    the card's name and power limit, and as the last line ``{"ok": true,
@@ -1803,6 +1823,7 @@ def phase_conic_routes(gen):
 # ---- the nonsymmetric-cone path: kernel K7, [exp], [ns-routes] ------------------------------------------
 
 EXP_K = 3  # the exp benchmark: entropy with k = 3 exp blocks, n = 6, one zero row, N = 16
+FULL_BATCH = 32768  # --batch's default: the full run
 EXP_BATCH = 16384
 # K7 against its plain version. f32 at the full width: a stated distribution, as for K6. f64: the
 # dual-scaling Hessian conditions like 1/mu^2 and the searches choose their steps on grids, so after
@@ -2239,6 +2260,10 @@ TOL_NLP = {
     torch.float64: {"x": (1e-13, 1e-12), "dx": (1e-12, 1e-11), "share": 0.01},  # max: >= 2,000x the readings
     torch.float32: {"x": (1e-6, 1e-5), "dx": (1e-5, 1e-4), "share": 0.01},  # max: 48x and 90x the readings
 }
+# each f32 route against the f64 solution of the same 512 instances, relative to 1 + the instance's largest entry (an
+# f32 solve stops at a KKT error of 1e-6): the H100 read x 1.55e-7 / 1.57e-7 and dx 1.37e-6 / 1.37e-6 at most on the
+# kernel / plain route; the limits are 64x and 73x that, as TOL_NLP's f32 maxima
+TOL_NLP_F32_VS_F64 = {"x": 1e-5, "dx": 1e-4}
 # the card against the host on the same small f64 calls ([nlp-routes]), relative to 1 + the largest entry
 TOL_NLP_ROUTES = 1e-8
 # ... and for qp_via_conic, whose conic IPM ends at its floor near tol=1e-11 (see phase_nlp_routes): 5x the larger
@@ -2273,21 +2298,20 @@ def _nlp_vjp_step(nlp, p):
     return step
 
 
-def _capture_newton_system(run):
-    """The LDL' pair's inputs on the path: the last factorised matrix of ``run`` and the right-hand side of its
-    first solve (captured around the wrappers, which still launch and count)."""
+def _capture_ldl_calls(run):
+    """The LDL' pair's inputs on a path: the last matrix ``run`` factorised and the right-hand sides solved with its
+    factor, in order (captured around the wrappers, which still launch and count)."""
     from diffopt_tpu_torch.ops.cuda import chol
 
     seen = {}
     factor, solve = chol.ldl_batched, chol.ldl_solve_batched
 
     def f(K, **kw):
-        seen["K"], seen["fresh"] = K, True
+        seen["K"], seen["rhs"] = K, []
         return factor(K, **kw)
 
     def s(L, d, rhs, **kw):
-        if seen.pop("fresh", False):
-            seen["rhs"] = rhs
+        seen["rhs"].append(rhs)
         return solve(L, d, rhs, **kw)
 
     # the wrappers count on whatever the module's names hold: give the stand-ins counters of their own
@@ -2298,7 +2322,7 @@ def _capture_newton_system(run):
         run()
     finally:
         chol.ldl_batched, chol.ldl_solve_batched = factor, solve
-    return seen["K"].contiguous(), seen["rhs"].contiguous()
+    return seen["K"].contiguous(), [r.contiguous() for r in seen["rhs"]]
 
 
 def _count_syncs(fn):
@@ -2340,7 +2364,7 @@ def phase_nlp(batch, gen):
     nlp, p, dp = make_nlp_bench(B, torch.float32, DEVICE)
 
     # the path's own Newton systems: body 5's (at the first body every instance's matrix is the same, x = 0)
-    K, rhs = _capture_newton_system(lambda: nlpsolver.solve(nlp, p, max_iters=5, tol=NLP_TOL))
+    K, (rhs, *_) = _capture_ldl_calls(lambda: nlpsolver.solve(nlp, p, max_iters=5, tol=NLP_TOL))
     check(K.shape == (B, N, N) and rhs.shape == (B, N), f"[nlp]: captured Newton systems of shape {tuple(K.shape)}")
 
     wrappers = reset_counts()
@@ -2377,7 +2401,7 @@ def phase_nlp(batch, gen):
 
     # the path against the same calls routed through the plain K2 / K3, on 512 instances, f64 and f32
     sub = min(B, 512)
-    agreement = {}
+    agreement, routes = {}, {}
     for dtype in (torch.float64, torch.float32):
         tag = "f64" if dtype == torch.float64 else "f32"
         nlp_d = make_nlp_bench(1, dtype, DEVICE)[0]
@@ -2398,6 +2422,7 @@ def phase_nlp(batch, gen):
             check(share <= tol["share"] and float(d.max()) <= tol[name][1],
                   f"[nlp] {tag}: {name} parts from the plain route (past {tol[name][0]:.0e} on {share:.2%}, max"
                   f" {float(d.max()):.3e})")
+        routes[tag] = {"kernel": (ksol.x, kdx), "plain": (psol.x, pdx)}
         its_diff = float((kinfo.iterations != pinfo.iterations).float().mean())
         agreement[tag] = dict(rec, iterations_differ=its_diff, converged=float(kinfo.converged.float().mean()),
                               converged_plain=float(pinfo.converged.float().mean()))
@@ -2407,6 +2432,22 @@ def phase_nlp(batch, gen):
               f" {rec['dx']['share_past_tol']:.2%}); iteration counts differ on {its_diff:.2%}; converged"
               f" {agreement[tag]['converged']:.2%} / {agreement[tag]['converged_plain']:.2%} (tol: at most"
               f" {tol['share']:.0%} past, none past {tol['x'][1]:.0e} / {tol['dx'][1]:.0e})")
+
+    # is either f32 route less accurate? Both against the f64 kernel route's solution on the same 512 instances (the
+    # f64 routes agree to 1e-15): the two error distributions side by side
+    x64, dx64 = routes["f64"]["kernel"]
+    f32_vs_f64 = {}
+    for route, (x, dxr) in routes["f32"].items():
+        f32_vs_f64[route] = {name: dict(zip(("median", "q99", "max"), _dist(_inst_rel(a, b))))
+                             for name, a, b in (("x", x, x64), ("dx", dxr, dx64))}
+    agreement["f32_vs_f64"] = f32_vs_f64
+    for route, rec in f32_vs_f64.items():
+        print(f"[nlp] f32 {route} route against the f64 solution, B={sub}: " + "; ".join(
+            f"{name} median {d['median']:.3e} q99 {d['q99']:.3e} max {d['max']:.3e}" for name, d in rec.items()))
+    for name in ("x", "dx"):
+        for route in f32_vs_f64:
+            check(f32_vs_f64[route][name]["max"] <= TOL_NLP_F32_VS_F64[name],
+                  f"[nlp]: the f32 {route} route's {name} is {f32_vs_f64[route][name]['max']:.3e} from the f64 solution")
 
     # K2 at N = 24 and K3 at (24, 1) on the path's own systems: held at every team, timed by CUDA-graph replay
     recs = _hold_ldl(chol, K, rhs, True)
@@ -2595,9 +2636,251 @@ def phase_nlp_routes(gen):
     return worst
 
 
+# ---------------------------------------------------------------------------------------------------------------
+# The two-stage Schur path (BASELINE config 5), the native packer and the examples
+# ---------------------------------------------------------------------------------------------------------------
+
+TWO_STAGE_SIZES = (8192, 100_000)  # the JAX package's two-stage bench, and BASELINE config 5's 10^5 scenarios
+# The f32 step against the f64 step on the same data, which must converge: the solution's z and xs and the forward
+# sensitivity's z and xs, relative to 1 + the largest |entry|; z whole, xs per scenario at its 99th percentile, the
+# share of scenarios past 1e-3, and its max. The same limits for the solution and its sensitivity (a linear solve
+# at it), set before the first reading.
+TOL_TWO_STAGE_F32 = {"z": 1e-3, "xs_q99": 1e-3, "xs_share_past_1e-3": 0.01, "xs_max": 1e-2}
+
+
+def _two_stage_step(ts, group=None):
+    """The two-stage bench's step (benchmarks/two_stage_bench.py:60-63): the coupled solve, the forward sensitivity
+    along the data itself, and the loss sum(z**2) + sum(dxs**2)."""
+    from diffopt_tpu_torch.parallel import schur
+
+    def step():
+        sol, info = schur.solve_two_stage(ts, group=group)
+        fwd = schur.two_stage_forward_sensitivity(ts, sol, ts, group=group)
+        return sol, info, fwd, (sol.z**2).sum() + (fwd.xs**2).sum()
+
+    return step
+
+
+def phase_two_stage(batch):
+    """The two-stage Schur path at the JAX package's bench shape (n = 8, m = 4, p = 2, c = 4, f32) at S = 8192
+    and S = 100,000: a warm-up and three timed steps each, launch counts by shape, host syncs, the global converged
+    flag, residuals and bodies, and z and xs of the solution and the sensitivity against the f64 step on the same
+    data, whose solve must converge; K2 at N = 10 / 14 and K3 at (10, 4), (10, 1), (14, 4), (14, 1) held and timed on the path's
+    own systems (S = 8192); and the collective path in a one-process NCCL group against the group=None run.
+    Returns the kernels-line entries and the ``two_stage`` line."""
+    import socket
+
+    import torch.distributed as dist
+
+    from diffopt_tpu_torch.ops.cuda import chol
+    from diffopt_tpu_torch.parallel import schur
+    from diffopt_tpu_torch.utils.testing import TWO_STAGE_BENCH, make_two_stage_bench
+
+    n, m, p, c = (TWO_STAGE_BENCH[k] for k in "nmpc")
+    Ns, Nf = n + p, n + m + p  # the solver's blocks, the sensitivity's
+    runs = STEPS + 1
+    line, entries = {}, {}
+    # the full run (the default --batch) takes both sizes; a smaller --batch caps them
+    sizes = sorted({s if batch >= FULL_BATCH else min(batch, s) for s in TWO_STAGE_SIZES})
+    for S in sizes:
+        ts = make_two_stage_bench(S, dtype=torch.float32, device=DEVICE)
+        wrappers = reset_counts()
+        schur.solve_two_stage.host_syncs = 0
+        (sol, info, fwd, loss), med = timed_steps(_two_stage_step(ts), STEPS)
+        by_shape = ldl_shape_launches()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        syncs = schur.solve_two_stage.host_syncs / runs
+        bodies = int(info.iterations)
+        tag = f"[two-stage] S={S}"
+        print(f"{tag}: launches over {runs} steps {launches}; K2 / K3 by shape {by_shape}; {syncs:.1f} host syncs a step")
+        # each Schur solve factors once and solves with k = c, 1 and 1 right-hand sides; the solver makes one Schur
+        # solve to start and two a body, the forward sensitivity one
+        want = {f"ldl_factor_N{Ns}": runs * (2 * bodies + 1), f"ldl_solve_N{Ns}_k{c}": runs * (2 * bodies + 1),
+                f"ldl_solve_N{Ns}_k1": runs * 2 * (2 * bodies + 1), f"ldl_factor_N{Nf}": runs,
+                f"ldl_solve_N{Nf}_k{c}": runs, f"ldl_solve_N{Nf}_k1": 2 * runs}
+        check(by_shape == want, f"{tag}: K2 / K3 launched {by_shape}, not one factor and three solves a Schur solve"
+                                f" ({want})")
+        check(all(v == 0 for k, v in launches.items() if k not in ("ldl_factor", "ldl_solve")),
+              f"{tag}: a kernel of another path was launched")
+        check(syncs == bodies, f"{tag}: {syncs} host syncs a step for {bodies} bodies")
+        outs = (*sol, *fwd, loss)
+        check(all(bool(torch.isfinite(t).all()) for t in outs), f"{tag}: non-finite solution, sensitivity or loss")
+        check(sol.xs.shape == (S, n) and sol.lams.shape == (S, m) and sol.nus.shape == (S, p) and sol.z.shape == (c,)
+              and fwd.xs.shape == (S, n) and all(t.device.type == torch.device(DEVICE).type for t in outs),
+              f"{tag}: wrong shapes or device")
+        res = {k: float(getattr(info, k)) for k in ("primal_residual", "dual_residual", "duality_gap")}
+        rec = dict(scenarios_per_s=S / med, step_ms=med * 1e3, converged=bool(info.converged), bodies=bodies,
+                   **res, host_syncs_per_step=syncs, ldl_launches_per_step={k: v / runs for k, v in by_shape.items()},
+                   ldl_launches=by_shape, loss=float(loss))
+        print(f"{tag} f32: {S / med:.1f} scenarios / s (median step {med * 1e3:.2f} ms); converged {bool(info.converged)}"
+              f" after {bodies} bodies; primal {res['primal_residual']:.3e}, dual {res['dual_residual']:.3e},"
+              f" gap {res['duality_gap']:.3e}")
+        # the f32 step against the f64 step on the same data (drawn in f64), which must converge
+        ts64 = make_two_stage_bench(S, dtype=torch.float64, device=DEVICE)
+        sol64, info64, fwd64, _ = _two_stage_step(ts64)()
+        check(all(bool(torch.isfinite(t).all()) for t in (*sol64, *fwd64)), f"{tag}: the f64 step is not finite")
+        f64 = {k: float(getattr(info64, k)) for k in ("primal_residual", "dual_residual", "duality_gap")}
+        held = {}
+        for what, a, b in (("solution", sol, sol64), ("sensitivity", fwd, fwd64)):
+            xs_err = _inst_rel(a.xs, b.xs)
+            held[what] = dict(z=float((a.z.double() - b.z).abs().max() / (1.0 + b.z.abs().max())),
+                              xs=dict(zip(("median", "q99", "max"), _dist(xs_err)),
+                                      share_past_1e_3=float((xs_err > 1e-3).float().mean())))
+        rec["f32_vs_f64"] = dict(**held, f64_bodies=int(info64.iterations), f64_converged=bool(info64.converged),
+                                 **{f"f64_{k}": v for k, v in f64.items()})
+        print(f"{tag}: against the f64 step ({int(info64.iterations)} bodies, converged {bool(info64.converged)},"
+              f" primal {f64['primal_residual']:.3e}, dual {f64['dual_residual']:.3e}, gap {f64['duality_gap']:.3e}): "
+              + "; ".join(f"{what} z {h['z']:.3e}, xs per scenario median {h['xs']['median']:.3e} q99"
+                          f" {h['xs']['q99']:.3e} max {h['xs']['max']:.3e}, past 1e-3 on {h['xs']['share_past_1e_3']:.3%}"
+                          for what, h in held.items()) + f" (tol {TOL_TWO_STAGE_F32})")
+        check(bool(info64.converged), f"{tag}: the f64 solve did not converge")
+        check(all(h["z"] <= TOL_TWO_STAGE_F32["z"] and h["xs"]["q99"] <= TOL_TWO_STAGE_F32["xs_q99"]
+                  and h["xs"]["share_past_1e_3"] <= TOL_TWO_STAGE_F32["xs_share_past_1e-3"]
+                  and h["xs"]["max"] <= TOL_TWO_STAGE_F32["xs_max"] for h in held.values()),
+              f"{tag}: the f32 solution or sensitivity is off the f64 one")
+        del ts64, sol64, fwd64
+        line[str(S)] = rec
+        if S == sizes[0]:
+            # K2 / K3 on the path's own systems: the Schur solve of body 5's corrector and the sensitivity's
+            K, (C, rloc, _) = _capture_ldl_calls(lambda: schur.solve_two_stage(ts, max_iters=5))
+            Kf, (Cf, rf, _) = _capture_ldl_calls(lambda: schur.two_stage_forward_sensitivity(ts, sol, ts))
+            for KK, CC, rr, N in ((K, C, rloc, Ns), (Kf, Cf, rf, Nf)):
+                check(KK.shape == (S, N, N) and CC.shape == (S, N, c) and rr.shape == (S, N)
+                      and bool(torch.isfinite(KK).all()), f"{tag}: captured systems of shape {tuple(KK.shape)}")
+                for r in _hold_ldl(chol, KK, rr, True) + _hold_ldl(chol, KK, CC, True, solve_only=True)[1:]:
+                    entries[r["name"]] = r
+            nccl = (sol, fwd)
+    # the collective path: the same step in a one-process NCCL group, every reduction an all_reduce
+    S = sizes[0]
+    ts = make_two_stage_bench(S, dtype=torch.float32, device=DEVICE)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        (gsol, ginfo, gfwd, _), gmed = timed_steps(_two_stage_step(ts, group=dist.group.WORLD), 1)
+    finally:
+        dist.destroy_process_group()
+    sol, fwd = nccl
+    diffs = {name: float((a - b).abs().max()) for name, a, b in
+             (("z", gsol.z, sol.z), ("xs", gsol.xs, sol.xs), ("dxs", gfwd.xs, fwd.xs), ("dz", gfwd.z, fwd.z))}
+    print(f"[two-stage] one-process NCCL group, S={S}: max |difference| from the group=None run {diffs} (must be 0);"
+          f" step {gmed * 1e3:.2f} ms, {int(ginfo.iterations)} bodies")
+    check(all(v == 0.0 for v in diffs.values()) and int(ginfo.iterations) == line[str(S)]["bodies"],
+          "[two-stage]: the NCCL group's run differs from the group=None run")
+    line["nccl_one_process"] = dict(max_abs_diff=diffs, step_ms=gmed * 1e3, bodies=int(ginfo.iterations))
+    line.update(n=n, m=m, p=p, c=c, runs=runs)
+    return entries, line
+
+
+def phase_native():
+    """The native packer on the machine with the card: compiled (not the numpy fallback), against np.add.at, its
+    batch on the card."""
+    import numpy as np
+
+    from diffopt_tpu_torch import native
+
+    check(native.native_available(), "[native]: the C++ packer did not build")
+    rng = np.random.default_rng(0)
+    triplets = [(rng.integers(0, 12, k), rng.integers(0, 9, k), rng.normal(size=k)) for k in rng.integers(0, 40, 64)]
+    t0 = time.perf_counter()
+    out = native.pack_coo_batch(triplets, 12, 9, device=DEVICE)
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = np.zeros((len(triplets), 12, 9))
+    for i, (r, c_, v) in enumerate(triplets):
+        np.add.at(ref[i], (r, c_), v)
+    err = float(np.abs(out.cpu().numpy() - ref).max())
+    vec = native.pack_vec_batch([np.arange(3.0), np.ones(5)], 6, fill=-1.0, device=DEVICE)
+    print(f"[native] C++ packer built ({native.build_dir().name}); 64 instances packed in {ms:.2f} ms, max |dx| from"
+          f" np.add.at {err:.1e}, on {out.device}")
+    check(err <= 1e-14 and out.device.type == vec.device.type == torch.device(DEVICE).type
+          and vec.cpu().tolist() == [[0, 1, 2, -1, -1, -1], [1, 1, 1, 1, 1, -1]], "[native]: the packer is wrong")
+
+
+def phase_examples():
+    """Each examples/*_torch.py on the card at its file's sizes, held to its closed form, its outputs on the card.
+    Returns the seconds each took."""
+    import pathlib
+
+    import numpy as np
+    import torch.autograd.forward_ad as fwAD
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "examples"))
+    import autotuning_ridge_torch as ridge
+    import entropic_projection_torch as entropic
+    import nearest_correlation_torch as ncm
+    import qp_layers_torch as layers
+    import sensitivity_analysis_torch as sens
+    import unit_commitment_torch as uc
+
+    on_card = lambda *ts: all(t.device.type == torch.device(DEVICE).type for t in ts)
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+
+    def qp_layers():
+        y = torch.tensor([-1.5, -0.3, 0.4, 2.0], dtype=torch.float64, device=DEVICE, requires_grad=True)
+        z = layers.qp_relu(y)
+        z.sum().backward()
+        with fwAD.dual_level():
+            jac = fwAD.unpack_dual(layers.qp_relu(fwAD.make_dual(y.detach().expand(4, 4).contiguous(),
+                                                                 torch.eye(4, dtype=torch.float64, device=DEVICE)))).tangent
+        mask = (y.detach() > 0).double()
+        check(on_card(z, y.grad, jac) and float((z.detach() - y.detach().clamp(min=0)).abs().max()) <= 1e-4
+              and float((y.grad - mask).abs().max()) <= 1e-5 and float((jac - torch.diag(mask)).abs().max()) <= 1e-5,
+              "[examples] qp_layers: the QP layer is not ReLU or its gradient not the active mask")
+        mlp, poly = layers.train_qp_relu_mlp(steps=25, device=DEVICE), layers.learn_polytope(steps=30, device=DEVICE)
+        check(mlp[-1] < 0.5 * mlp[0] and poly[-1] < 0.5 * poly[0], f"[examples] qp_layers: training did not converge")
+
+    def autotuning():
+        hist = ridge.autotune(steps=30, device=DEVICE)
+        check(hist[-1][1] <= hist[0][1], "[examples] autotuning_ridge: the validation loss rose")
+
+    def sensitivity():
+        g, price, dg = sens.economic_dispatch_prices(demand=10.0, device=DEVICE)
+        z, manual, port = sens.matrix_inversion_manual_check(device=DEVICE)
+        w, b, dw, X = sens.ridge_data_sensitivity(device=DEVICE)
+        w_svm, dw_svm = sens.svm_hyperplane_sensitivity(device=DEVICE)
+        check(np.abs(g - [6.0, 4.0]).max() <= 1e-5 and abs(price - 3.0) <= 1e-5 and np.abs(dg - [0.0, 1.0]).max() <= 1e-4
+              and np.abs(port - manual).max() <= 1e-7 and np.corrcoef(dw, X - X.mean())[0, 1] > 0.99
+              and w_svm[0] > 0 and w_svm[1] > 0, "[examples] sensitivity_analysis: a closed form does not hold")
+
+    def correlation():
+        A = np.array([[1.0, 0.9, -0.9], [0.9, 1.0, 0.3], [-0.9, 0.3, 1.0]])
+        X = ncm.nearest_correlation(A, device=DEVICE)
+        check(on_card(X) and float(np.abs(X.cpu().numpy() - ncm.higham(A)).max()) <= 2e-3,
+              "[examples] nearest_correlation: not Higham's matrix")
+
+    def unit_commitment():
+        cost, prices = uc.marginal_prices(device=DEVICE)
+        check(on_card(prices) and bool((prices > 0.5).all()) and int(prices.argmax()) == 2,
+              f"[examples] unit_commitment: prices {prices.tolist()}")
+
+    def entropic_projection():
+        q = torch.tensor([0.3, -0.2, 0.1, 0.0], dtype=torch.float64, device=DEVICE)
+        target = torch.tensor(entropic.TARGET, dtype=torch.float64, device=DEVICE)
+        p = entropic.entropic_projection(q)
+        g_layer, g_analytic = entropic.softmax_gradient_check(q, target)
+        check(on_card(p, g_layer) and float((p - torch.softmax(q, 0)).abs().max()) <= 1e-6
+              and float((g_layer - g_analytic).abs().max()) <= 1e-6,
+              "[examples] entropic_projection: not softmax or not its gradient")
+
+    for name, fn in (("qp_layers", qp_layers), ("autotuning_ridge", autotuning), ("sensitivity_analysis", sensitivity),
+                     ("nearest_correlation", correlation), ("unit_commitment", unit_commitment),
+                     ("entropic_projection", entropic_projection)):
+        timed(name, fn)
+    print(f"[examples] every examples/*_torch.py on the card, held to its closed form; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return seconds
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=32768, help="instances in the batch (default: the full size)")
+    ap.add_argument("--batch", type=int, default=FULL_BATCH, help="instances in the batch (default: the full size)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -2637,10 +2920,17 @@ def main(argv=None):
     nlp_entries, nlp = phase_nlp(args.batch, gen)
     nlp_routes = phase_nlp_routes(gen)
     entries.update(nlp_entries)
+    two_stage_entries, two_stage = phase_two_stage(args.batch)
+    entries.update(two_stage_entries)
+    phase_native()
+    example_seconds = phase_examples()
     # each kernel's count is read from the run of its own path: K1-K3 the QP main path's (K2 / K3 at N = 172:
     # the [qp100] path's; at N = 24 the [nlp] path's), K6 the conic path's, K7 the exp path's
     own = {"conic_pdip": conic_launches, "ns_pdip": exp_launches, **{nm: qp100["ldl_launches_by_shape"] for nm in ldl_entries},
            **{nm: nlp["ldl_launches_by_shape"] for nm in nlp_entries}}
+    # K2 / K3 at N = 10 / 14: the counts of the two-stage path's run at the bench's S = 8192
+    ts_runs = {S: rec["ldl_launches"] for S, rec in two_stage.items() if isinstance(rec, dict) and "ldl_launches" in rec}
+    own.update({nm: ts_runs[min(ts_runs, key=int)] for nm in two_stage_entries})
     # K4 / K5: one entry for each shape a path launched them at, with the count of the paths that did (the
     # staged QP path: n = 64 and 16; the gram route: n = 34 on [conic], 17 on [exp], 18 / 44 / 144 on
     # [sdp]; the condensed route on the [sdp] side 16: n = 3), and its launches per step on each; the
@@ -2665,6 +2955,8 @@ def main(argv=None):
             e["launches_per_step"] = per_step[name]
         if name in nlp_entries:
             e["launches_per_step"] = {"nlp": e["launches"] / nlp["runs"]}
+        if name in two_stage_entries:
+            e["launches_per_step"] = {f"two_stage S={S}": c[name] / two_stage["runs"] for S, c in ts_runs.items()}
     print(
         f"[main] {rate:.1f} QP solves+VJPs per second (median step {step_s * 1e3:.2f} ms, B = {args.batch}) on {card}"
     )
@@ -2690,6 +2982,11 @@ def main(argv=None):
           f" {nlp['vjp_step_ms']:.2f} ms) on {card}")
     print(json.dumps({"nlp": {**{k: v for k, v in nlp.items() if k != "ldl_launches_by_shape"},
                               "routes_card_vs_host": nlp_routes, "card": card}}))
+    for S, rec in two_stage.items():
+        if isinstance(rec, dict) and "scenarios_per_s" in rec:
+            print(f"[two-stage] {rec['scenarios_per_s']:.1f} scenario solves+sensitivities per second at S = {S} (median"
+                  f" step {rec['step_ms']:.2f} ms, {rec['bodies']} bodies, converged {rec['converged']}) on {card}")
+    print(json.dumps({"two_stage": {**two_stage, "examples_seconds": example_seconds, "card": card}}))
     print(json.dumps({"k6_teams": {**entries["conic_pdip"].pop("k6_teams"), "card": card}}))
     print(json.dumps({"k7_teams": {**entries["ns_pdip"].pop("k7_teams"), "card": card}}))
     print(json.dumps({"k1_teams": {**k1_teams, "card": card}}))

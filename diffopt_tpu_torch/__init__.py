@@ -23,9 +23,11 @@ every conic verb, the fused dual-scaling IPM kernel behind
 behind ``solve_conic(solver="nsipm"|"dr")``; the NLP path — ``nlp_diff``
 (the sIpopt sensitivity verbs), the embedded interior-point solver
 (``solvers/nlp.py``, its Newton systems on the LDL' kernels), ``solve_nlp``,
-``NLPDiffContext`` and ``ParametricProgram(kind="nlp")``; and the
-differentiable rewrites of ``bridges``. ``native/``, the examples and the
-multi-device modules (``parallel/``) come with later slices.
+``NLPDiffContext`` and ``ParametricProgram(kind="nlp")``; the
+differentiable rewrites of ``bridges``; the multi-process modules
+(``parallel/``: the Schur-coupled two-stage solver on the LDL' kernels, its
+sensitivities, scenario sharding over a ``DeviceMesh``, the runtime and the
+tensor-parallel Cholesky); and the native instance packer (``native/``).
 """
 
 from .ir import ConeProgram, ConeSolution, ConeTangent, QPSolution, QPTangent, QuadProgram
@@ -38,7 +40,7 @@ from .solvers.qp import QPSolveInfo, kkt_metrics
 from .api import ConicDiffContext, NLPDiffContext, NotSolvedError, QPDiffContext
 from .parameters import ParametricProgram
 from .utils.config import DiffOptConfig, get_config, set_config, use_config
-from . import bridges, conic_diff, convert, nlp_diff, parameters, qp_diff, utils
+from . import bridges, conic_diff, convert, native, nlp_diff, parallel, parameters, qp_diff, utils
 
 __version__ = "0.1.0"
 
@@ -75,6 +77,8 @@ __all__ = [
     "set_config",
     "use_config",
     "convert",
+    "native",
+    "parallel",
     "parameters",
     "qp_diff",
     "utils",

@@ -1,6 +1,6 @@
 """Where one solve + VJP step spends its device time.
 
-    python3 -m diffopt_tpu_torch.tools.profile_step [--batch 32768] [--path main|staged|qp100|conic|exp|sdp|nlp] [--side 16]
+    python3 -m diffopt_tpu_torch.tools.profile_step [--batch 32768] [--path main|staged|qp100|conic|exp|sdp|nlp|two_stage] [--side 16]
 
 Runs one step forward + backward once to warm up and once under
 ``torch.profiler``, and prints the device time by kernel, the step's wall
@@ -22,7 +22,11 @@ benchmark's step (the embedded NLP solver, ``max_iters=40, tol=1e-6``, then
 ``nlp_diff.forward_differentiate(...).dx``) on its problem (n = 16, nc = 8
 equalities, f32; ``--batch`` is capped at its 16384), with the device time of
 K2, K3, the sensitivity LU and the rest (the ``torch.func`` derivatives and
-elementwise glue). The host syncs and the step's time without the profiler are
+elementwise glue); ``--path two_stage`` is the two-stage benchmark's step
+(``parallel/schur.py``: ``solve_two_stage``, then the forward sensitivity
+along the data) on its scenario-coupled QP (n = 8, m = 4, p = 2, c = 4, f32;
+``--batch`` is the number of scenarios S, 8192 unless given), with the device
+time of K2, K3, the c x c coupling solves and the rest. The host syncs and the step's time without the profiler are
 printed too.
 """
 
@@ -37,8 +41,8 @@ import torch
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=32768)
-    ap.add_argument("--path", choices=("main", "staged", "qp100", "conic", "exp", "sdp", "nlp"), default="main",
+    ap.add_argument("--batch", type=int, default=None, help="instances (default 32768; scenarios S of two_stage: 8192)")
+    ap.add_argument("--path", choices=("main", "staged", "qp100", "conic", "exp", "sdp", "nlp", "two_stage"), default="main",
                     help="which entry point to profile")
     ap.add_argument("--side", type=int, default=16, help="psd side of --path sdp")
     ap.add_argument("--rows", type=int, default=16, help="rows of the table")
@@ -53,7 +57,13 @@ def main():
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    if args.path == "nlp":
+    if args.batch is None:
+        args.batch = 8192 if args.path == "two_stage" else 32768
+    if args.path == "two_stage":
+        from diffopt_tpu_torch.utils.testing import make_two_stage_bench
+
+        two_stage = make_two_stage_bench(args.batch)
+    elif args.path == "nlp":
         from diffopt_tpu_torch.utils.testing import NLP_BENCH_BATCH, make_nlp_bench
 
         args.batch = min(args.batch, NLP_BENCH_BATCH)
@@ -74,11 +84,17 @@ def main():
 
     from diffopt_tpu_torch import nlp_diff
     from diffopt_tpu_torch.ops import kkt
+    from diffopt_tpu_torch.parallel import schur
     from diffopt_tpu_torch.solvers import conic_ipm, conic_nsipm
     from diffopt_tpu_torch.solvers import nlp as nlpsolver
     from diffopt_tpu_torch.solvers import qp as qpsolver
 
     def step():
+        if args.path == "two_stage":
+            sol, _ = schur.solve_two_stage(two_stage)
+            fwd = schur.two_stage_forward_sensitivity(two_stage, sol, two_stage)
+            ((sol.z**2).sum() + (fwd.xs**2).sum()).item()
+            return
         if args.path == "nlp":
             sol, _ = nlpsolver.solve(nlp, nlp_p, max_iters=40, tol=1e-6)
             nlp_diff.forward_differentiate(nlp, sol, nlp_p, nlp_dp)
@@ -97,7 +113,8 @@ def main():
 
     count_syncs = lambda: (qpsolver.solve_batched.host_syncs + kkt._auto_solve.host_syncs
                            + conic_ipm.solve_batched.host_syncs + conic_nsipm.solve_batched.host_syncs
-                           + nlpsolver.solve.host_syncs + nlp_diff.factorize_with_inertia.host_syncs)
+                           + nlpsolver.solve.host_syncs + nlp_diff.factorize_with_inertia.host_syncs
+                           + schur.solve_two_stage.host_syncs)
     step()
     torch.cuda.synchronize()
     syncs = count_syncs()
@@ -147,6 +164,14 @@ def main():
         print(f"nlp step: K2 {ours['K2 ldl_factor']:.2f} ms, K3 {ours['K3 ldl_solve']:.2f} ms, the LU {lu_ms:.2f} ms,"
               f" the rest (torch.func derivatives, the residuals and elementwise glue) {glue_ms:.2f} ms in {n_glue}"
               f" kernel launches")
+    if args.path == "two_stage":
+        # the replicated c x c coupling solves (torch.linalg.solve: an LU factor and solve a Schur solve)
+        lu_keys = ("getrf", "getrs", "lu_factor", "lu_solve", "laswp", "trsm", "trsv", "linalg_solve")
+        lu_ms = by(*lu_keys)
+        n_rest = sum(e.count for e in events if not any(k in e.key for k in ("ldl_factor_", "LdlDiag") + lu_keys))
+        print(f"two-stage step: K2 {ours['K2 ldl_factor']:.2f} ms, K3 {ours['K3 ldl_solve']:.2f} ms, the coupling"
+              f" solves {lu_ms:.2f} ms, the rest (block assembly, einsums, residuals, step lengths) "
+              f"{busy_ms - own_ms - lu_ms:.2f} ms in {n_rest} kernel launches")
 
 
 if __name__ == "__main__":

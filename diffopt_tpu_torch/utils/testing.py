@@ -279,3 +279,34 @@ def make_nlp_bench(B=NLP_BENCH_BATCH, dtype=torch.float32, device="cuda"):
         device=device,
     )
     return nlp, t(p), t(dp)
+
+
+TWO_STAGE_BENCH = dict(n=8, m=4, p=2, c=4)  # benchmarks/two_stage_bench.py's scenario shape
+TWO_STAGE_BENCH_S = 8192
+
+
+def make_two_stage_bench(S=TWO_STAGE_BENCH_S, seed=0, dtype=torch.float32, device="cuda"):
+    """The scenario-coupled QP of the JAX package's two-stage benchmark (BASELINE config 5;
+    ``benchmarks/two_stage_bench.py::make_two_stage``): S scenarios of n = 8 variables, m = 4 inequalities
+    and p = 2 equalities coupled through c = 4 first-stage variables, drawn from
+    ``numpy.random.default_rng(seed)`` in the benchmark's order (f64 draws, cast to ``dtype``).
+    Returns a :class:`~diffopt_tpu_torch.parallel.schur.TwoStageQP` on ``device``."""
+    import numpy as np
+
+    from ..parallel.schur import TwoStageQP
+
+    n, m, p, c = (TWO_STAGE_BENCH[k] for k in "nmpc")
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(S, n, n))
+    arrays = [
+        L @ np.transpose(L, (0, 2, 1)) + n * np.eye(n),
+        rng.normal(size=(S, n)),
+        rng.normal(size=(S, p, n)),
+        rng.normal(size=(S, p)),
+        rng.normal(size=(S, m, n)),
+        rng.normal(size=(S, m)) + 2.0,
+        rng.normal(size=(S, p, c)),
+        np.eye(c) * c,
+        rng.normal(size=c),
+    ]
+    return TwoStageQP(*(torch.as_tensor(a).to(device=device, dtype=dtype) for a in arrays))

@@ -53,6 +53,19 @@ def _padded_by_jax():
     return _jax_padded[0]
 
 
+def _jax_context_verbs(data, sol_np, tan, seeds):
+    """The JAX package's QPDiffContext at a given solution: forward along ``tan`` and reverse of ``seeds``, in one
+    jitted call (op by op, JAX compiles each operation on its own)."""
+
+    @jax.jit
+    def run(qp, sol, dqp, *seed):
+        jctx = dj.QPDiffContext(qp, sol)
+        return jctx.forward(dqp), jctx.reverse(*seed)
+
+    return run(_jq(data), dj.QPSolution(**{k: jnp.asarray(v) for k, v in sol_np.items()}),
+               dj.QPTangent(**{k: jnp.asarray(v) for k, v in tan.items()}), *map(jnp.asarray, seeds))
+
+
 def test_qp_diff_context_cached_forward_reverse_match_jax():
     data = _instance(4, 3, 2, seed=3, batch=(3,))
     rng = np.random.default_rng(4)
@@ -60,11 +73,9 @@ def test_qp_diff_context_cached_forward_reverse_match_jax():
     assert bool(ctx.solve_info.converged.all()) and np.isnan(ctx.differentiate_time_sec)
     # the JAX context gets the same solution (its own batched solve would compile the Pallas kernels)
     sol_np = dtt.convert.to_numpy(ctx.sol)
-    jctx = dj.QPDiffContext(_jq(data), dj.QPSolution(**{k: jnp.asarray(v) for k, v in sol_np.items()}))
     tan = {"d" + k: 0.1 * rng.normal(size=v.shape) for k, v in data.items()}
     seeds = [rng.normal(size=(3, k)) for k in (4, 3, 2)]
-    jd = jctx.forward(dj.QPTangent(**{k: jnp.asarray(v) for k, v in tan.items()}))
-    jg = jctx.reverse(*map(jnp.asarray, seeds))
+    jd, jg = _jax_context_verbs(data, sol_np, tan, seeds)
     ttan = dtt.convert.qptangent_from_numpy(tan, dtype=torch.float64, device="cpu")
     td = ctx.forward(ttan)
     assert ctx.differentiate_time_sec > 0
@@ -96,11 +107,9 @@ def test_qp_diff_context_takes_one_unbatched_instance_as_jax_does():
     jctx = dj.QPDiffContext(_jq(data))  # the JAX class solves the one instance itself
     np.testing.assert_allclose(ctx.sol.z.numpy(), np.asarray(jctx.sol.z), rtol=0, atol=1e-8)
     sol_np = dtt.convert.to_numpy(ctx.sol)
-    jctx = dj.QPDiffContext(_jq(data), dj.QPSolution(**{k: jnp.asarray(v) for k, v in sol_np.items()}))
     tan = {"d" + k: 0.1 * rng.normal(size=v.shape) for k, v in data.items()}
     seeds = [rng.normal(size=k) for k in (4, 3, 2)]
-    jd = jctx.forward(dj.QPTangent(**{k: jnp.asarray(v) for k, v in tan.items()}))
-    jg = jctx.reverse(*map(jnp.asarray, seeds))
+    jd, jg = _jax_context_verbs(data, sol_np, tan, seeds)
     td = ctx.forward(dtt.convert.qptangent_from_numpy(tan, dtype=torch.float64, device="cpu"))
     tg = ctx.reverse(*(torch.from_numpy(x) for x in seeds))
     for name in ("dz", "dlam", "dnu"):

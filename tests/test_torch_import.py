@@ -21,7 +21,7 @@ print("TORCH", "torch" in sys.modules)
 """
 
 
-_MODULES = ["diffopt_tpu_torch", "chip_smoke"]
+_MODULES = ["diffopt_tpu_torch", "chip_smoke", "diffopt_tpu_torch.parallel", "diffopt_tpu_torch.native"]
 
 
 @pytest.fixture(scope="module")
@@ -89,10 +89,12 @@ def test_every_port_module_imports_without_a_compiler():
         rel = f.relative_to(ROOT).with_suffix("")
         names.append(".".join(rel.parts[:-1] if rel.name == "__init__" else rel.parts))
         importlib.import_module(names[-1])
-    # the modules of the staged QP path, the symmetric-cone path and the nonsymmetric-cone path are among them
+    # the modules of the staged QP path, the symmetric-cone path, the nonsymmetric-cone path, the multi-process
+    # modules and the native packer are among them
     for mod in ("api", "parameters", "qp_diff", "ops.linalg", "solvers.qp", "utils.batching", "ops.cuda.chol",
                 "cones", "conic_diff", "ops.smalleig", "ops.lsqr", "solvers.conic", "solvers.conic_ipm",
-                "ops.cuda.conic_pdip", "ops.jordan", "ops.ns_barrier", "ops.cuda.ns_pdip", "solvers.conic_nsipm"):
+                "ops.cuda.conic_pdip", "ops.jordan", "ops.ns_barrier", "ops.cuda.ns_pdip", "solvers.conic_nsipm",
+                "parallel", "parallel.schur", "parallel.sharding", "parallel.runtime", "parallel.tp_chol", "native"):
         assert f"diffopt_tpu_torch.{mod}" in names
     from diffopt_tpu_torch.ops.cuda import _build
 

@@ -86,7 +86,23 @@ def one():
 
     sol, jg, jt = jax.jit(ref)(*map(jnp.asarray, (A, b, c)))
     as_np = lambda s: {k: np.asarray(getattr(s, k)) for k in "xys"}
-    return dict(A=A, b=b, c=c, blocks=blocks, w=w, tan=tan, sol=as_np(sol), grad=[np.asarray(g) for g in jg], jvp=as_np(jt))
+
+    # the JAX package's ConicDiffContext at the port's context solution, forward along tan and reverse of three
+    # seeds, in one jitted call (op by op it compiles each operation on its own)
+    ctx_sol = dtt.convert.to_numpy(dtt.ConicDiffContext(
+        dtt.ConeProgram(_t(A), _t(b), _t(c), dtt.ConeSpec(blocks))).sol)
+    seeds = [_w(ctx_sol[k].shape, 10 + i) for i, k in enumerate("xys")]
+
+    @jax.jit
+    def context(x, y, s, dA, db, dc, *seed):
+        jctx = dj.ConicDiffContext(mk(*map(jnp.asarray, (A, b, c))), dj.ConeSolution(x=x, y=y, s=s), polish=0)
+        jr = jctx.reverse(*seed)
+        return tuple(jctx.forward(dj.ConeTangent(dA=dA, db=db, dc=dc))), (jr.dA, jr.db, jr.dc)
+
+    jf, jr = context(*(jnp.asarray(ctx_sol[k]) for k in "xys"), *map(jnp.asarray, tan), *map(jnp.asarray, seeds))
+    return dict(A=A, b=b, c=c, blocks=blocks, w=w, tan=tan, sol=as_np(sol), grad=[np.asarray(g) for g in jg], jvp=as_np(jt),
+                ctx_sol=ctx_sol, ctx_seeds=seeds, ctx_forward=[np.asarray(t) for t in jf],
+                ctx_reverse=[np.asarray(t) for t in jr])
 
 
 def test_solve_conic_value_vjp_and_jvp_match_jax(one):
@@ -116,18 +132,17 @@ def test_conic_diff_context_matches_jax_context(one):
     cp = dtt.ConeProgram(_t(one["A"]), _t(one["b"]), _t(one["c"]), dtt.ConeSpec(one["blocks"]))
     ctx = dtt.ConicDiffContext(cp)
     assert bool(ctx.solve_info.converged) and ctx.sol.x.shape == (3,)
+    # the JAX context (in the fixture) was built at the solution of this same context
     S = dtt.convert.to_numpy(ctx.sol)
-    jcp = dj.ConeProgram(*(jnp.asarray(one[k]) for k in "Abc"), cones=dj.ConeSpec(one["blocks"]))
-    jctx = dj.ConicDiffContext(jcp, dj.ConeSolution(**{k: jnp.asarray(v) for k, v in S.items()}), polish=0)
+    for k in "xys":
+        np.testing.assert_array_equal(S[k], one["ctx_sol"][k])
     dA, db, dc = one["tan"]
-    jf = jctx.forward(dj.ConeTangent(dA=jnp.asarray(dA), db=jnp.asarray(db), dc=jnp.asarray(dc)))
-    seeds = [_w(S[k].shape, 10 + i) for i, k in enumerate("xys")]
-    jr = jctx.reverse(*map(jnp.asarray, seeds))
+    jf, jr, seeds = one["ctx_forward"], one["ctx_reverse"], one["ctx_seeds"]
     tf = ctx.forward(dtt.ConeTangent(_t(dA), _t(db), _t(dc)))
     tr = ctx.reverse(*map(_t, seeds))
     for a, b in zip(tf, jf):
         assert _rel(a, b) <= 1e-8
-    for a, b in zip(tr.tensors(), (jr.dA, jr.db, jr.dc)):
+    for a, b in zip(tr.tensors(), jr):
         assert _rel(a, b) <= 1e-8
     # and the cached route gives what the uncached verbs give
     d = dtt.conic_diff.reverse_differentiate(ctx._cp, ctx._sol, *(_t(s)[None] for s in seeds), method="lstsq", refine_iters=2)

@@ -96,17 +96,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    N = 10 / 14 and K3 at (10, 4), (10, 1), (14, 4), (14, 1) held and timed on the path's own
    systems (S = 8192), and the same step in a one-process NCCL group, which
    must give the ``group=None`` run's bits;
-10. ``[native]``: the C++ packer builds and agrees with ``np.add.at``, its
+10. the compile gate (``[entry]``): ``graft_entry.entry()``'s step (the fused QP
+   solver at n = 16 and 100 with its LDL' VJP, the fused conic solvers on a
+   SOCP, an SDP, an N = 90 layout with every symmetric kind and an exp / pow
+   layout, B = 8) in f32 and f64: finite value and gradient, K1-K7 each
+   launched, and each kernel held against its plain version, with the checks
+   of the kernels phase, on the inputs of its first launch at each of the
+   step's shapes (captured around the wrappers); then ``[dryrun]``:
+   ``graft_entry.dryrun_multichip`` over every card of the machine, one
+   process a card in one NCCL group, each part held against the one-process
+   result, K1-K6 launched inside the group;
+11. ``[native]``: the C++ packer builds and agrees with ``np.add.at``, its
    batches on the card;
-11. ``[examples]``: every ``examples/*_torch.py`` on the card at its file's
+12. ``[examples]``: every ``examples/*_torch.py`` on the card at its file's
    sizes, held to its closed form (ReLU and its gradient, the dispatch and
    ridge sensitivities, Higham's nearest correlation matrix, the
    unit-commitment prices, softmax and its Jacobian), its outputs on the card;
-12. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``,
-   ``exp``, ``nlp``, ``two_stage``, ``k6_teams``, ``k7_teams``, ``k1_teams``, ``chol_teams``, ``ldl_teams`` and
+13. prints the JSON lines ``main``, ``staged``, ``qp100``, ``conic``, ``sdp``,
+   ``exp``, ``nlp``, ``two_stage``, ``entry``, ``dryrun``, ``k6_teams``, ``k7_teams``, ``k1_teams``,
+   ``chol_teams``, ``ldl_teams`` and
    ``{"kernels": [...]}`` (K1-K7; K2 and K3 at N = 112, 172, 24, 10 and 14, K4 and K5 one
    entry per shape a path launched them at, with its launches per step on
-   each path),
+   each path; the gate's shapes as ``entry_*`` with their launches on its f32 step),
    the card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 """
@@ -315,6 +326,14 @@ def k1_hold(qp, tag):
     return held, (psol, pits), plain_ms
 
 
+def k1_bound(qp, its):
+    """K1's bound on the batch ``qp``: Q, q, A, b, G, h read, z, lam, nu and the counts written; the operations of
+    the bodies this run's instances ran (``its``), the init counted as one more."""
+    B, n, m, p, item = qp.batch_size, qp.num_vars, qp.num_ineq, qp.num_eq, qp.Q.element_size()
+    return bound(B * item * (n * n + (m + p) * (n + 1) + n + (n + 2 * m + p) + 1),
+                 float((its.double() + 1).sum()) * pdip_flops_per_iteration(n, m, p))
+
+
 def k1_shape_record(n, m, p, B, team, ms_by_team, plain_ms):
     """One shape's entry of the k1_teams line: K1's ms and resident teams per SM by team (f32)."""
     from diffopt_tpu_torch.ops.cuda import pdip
@@ -389,11 +408,8 @@ def phase_kernels(batch, gen):
         team = pdip.team_for(n, m, p, qp.Q.element_size())
         sol, its, max_abs = held[team]
         if main:
-            item = qp.Q.element_size()
             ms_by_team = {t: time_ms(lambda: pdip.solve_batched_fused(qp, max_iters=25, team=t), reps=3) for t in held}
-            bytes_moved = B * item * (n * n + (m + p) * (n + 1) + n + (n + 2 * m + p) + 1)
-            flops = float((its.double() + 1).sum()) * pdip_flops_per_iteration(n, m, p)
-            b_ms, b_by = bound(bytes_moved, flops)
+            b_ms, b_by = k1_bound(qp, its)
             entries["pdip_fused"] = dict(
                 name="pdip_fused", route="cuda", source="diffopt_tpu_torch/csrc/pdip.cu",
                 replaces="diffopt_tpu/ops/pallas/pdip.py:204", max_abs_err=max_abs, ms=ms_by_team[team],
@@ -1405,23 +1421,37 @@ def internal_batch(cp):
     return internal_rows(cp)[:2]
 
 
-def k6_compare(cp, tol, max_iters=50):
-    """K6 at every team size that takes the batch's layout, and its plain version once, on one batch.
-    Returns ``{team: kernel outputs}``, the plain outputs, ``{team: per-instance relative differences}``
-    over x, yE (where there are equality rows), yC and s, the plain version's wall time and the inputs."""
+def k6_run(args, lay, kw):
+    """K6 at every team size that takes the layout, and its plain version once, on the fused kernel's inputs
+    ``args`` with the settings ``kw``. Returns ``{team: kernel outputs}``, the plain outputs, ``{team:
+    per-instance relative differences}`` over x, yE (where there are equality rows), yC and s, and the plain
+    version's wall time."""
     from diffopt_tpu_torch.ops.cuda import conic_pdip
 
-    args, lay = internal_batch(cp)
-    f64 = cp.A.dtype == torch.float64
-    kw = dict(max_iters=max_iters, tol=tol, reg=1e-11 if f64 else 1e-7, eps=1e-14 if f64 else 1e-7)
-    n, (p, l, socs, psds) = cp.num_vars, lay
-    teams = [t for t in conic_pdip.TEAMS if conic_pdip.team_takes(n, p, l, socs, psds, cp.A.element_size(), t)]
+    n, (p, l, socs, psds) = args[0].shape[1], lay
+    teams = [t for t in conic_pdip.TEAMS if conic_pdip.team_takes(n, p, l, socs, psds, args[0].element_size(), t)]
     outs = {t: conic_pdip.solve_tile_fused(*args, lay, **kw, team=t) for t in teams}
     ref, plain_ms = wall_ms(lambda: conic_pdip.solve_tile_fused_plain(*args, lay, **kw))
     insts = {t: torch.stack([(a - b).abs().amax(-1) / (1.0 + b.abs().amax(-1))
                              for a, b in zip(out[:4], ref[:4]) if a.shape[-1]]).amax(0).double()
              for t, out in outs.items()}
-    return outs, ref, insts, plain_ms, (args, lay, kw)
+    return outs, ref, insts, plain_ms
+
+
+def k6_compare(cp, tol, max_iters=50):
+    """:func:`k6_run` on a ConeProgram batch at ``tol`` and ``max_iters``; returns its results and the inputs."""
+    args, lay = internal_batch(cp)
+    f64 = cp.A.dtype == torch.float64
+    kw = dict(max_iters=max_iters, tol=tol, reg=1e-11 if f64 else 1e-7, eps=1e-14 if f64 else 1e-7)
+    return (*k6_run(args, lay, kw), (args, lay, kw))
+
+
+def k6_bound(args, lay, its):
+    """K6's bound on the inputs ``args``: c, b, A read, x, y, s, the counts and residuals written; the operations
+    of the bodies this run's instances ran (``its``)."""
+    B, n, (p, l, socs, psds), mC = args[0].shape[0], args[0].shape[1], lay, args[2].shape[1]
+    return bound(B * args[0].element_size() * ((p + mC) * (n + 1) + n + (n + p + 2 * mC + 2) + 1),
+                 conic_pdip_flops(n, p, l, socs, psds, its))
 
 
 def k6_plain_reach(inputs, out, idx, draws):
@@ -1588,10 +1618,8 @@ def phase_kernels_conic(batch, gen):
     torch.cuda.empty_cache()
     for name, (args, lay, kw, its) in (("socp", socp), ("sdp4", sdp4)):
         B, n, (p, l, socs, psds) = args[0].shape[0], args[0].shape[1], lay
-        mC = args[2].shape[1]
-        bytes_moved = B * 4 * ((p + mC) * (n + 1) + n + (n + p + 2 * mC + 2) + 1)
         flops = conic_pdip_flops(n, p, l, socs, psds, its)
-        b_ms, b_by = bound(bytes_moved, flops)
+        b_ms, b_by = k6_bound(args, lay, its)
         ms = by_layout[name]["ms_by_team"][str(by_layout[name]["team"])]
         print(f"[kernels] conic_pdip {name} f32 B={B}: {ms:.3f} ms with a team of {by_layout[name]['team']} warps"
               f" (bound {b_ms:.3f} ms by {b_by}: {flops / B:.0f} flops per instance)")
@@ -1890,6 +1918,14 @@ def ns_pdip_flops(n, p, l, soc_dims, ns_blocks, iterations, dtype=torch.float32)
     return float(its.sum()) * (body + metrics) + its.numel() * (grad + 3 * metrics)
 
 
+def k7_bound(args, lay, its):
+    """K7's bound on the inputs ``args``: c, b, A read, x, y, s, the counts and the three residuals written; the
+    operations of the bodies this run's instances ran (``its``)."""
+    B, n, (p, l, socs, ns), mC = args[0].shape[0], args[0].shape[1], lay, args[2].shape[1]
+    return bound(B * args[0].element_size() * ((p + mC) * (n + 1) + n + (n + p + 2 * mC + 4)),
+                 ns_pdip_flops(n, p, l, socs, ns, its))
+
+
 def _inst_diff(out, ref):
     """Per-instance relative difference over x, yE, yC and s."""
     return torch.stack([(a - b).abs().amax(-1) / (1.0 + b.abs().amax(-1))
@@ -2050,10 +2086,8 @@ def phase_kernels_ns(batch, gen):
         if not f64:
             out = outs[rule]
             ms = rec["ms_by_team"][str(rule)]
-            mC = args[2].shape[1]
-            bytes_moved = B * 4 * ((p + mC) * (n + 1) + n + (n + p + 2 * mC + 4))
             flops = ns_pdip_flops(n, p, l, socs, ns, out[4])
-            b_ms, b_by = bound(bytes_moved, flops)
+            b_ms, b_by = k7_bound(args, lay, out[4])
             print(f"[kernels] ns_pdip {label} B={B}: {ms:.3f} ms on the rule's team of {rule} warps (bound {b_ms:.3f} ms"
                   f" by {b_by}: {flops / B:.0f} operations per instance; plain {plain_ms:.0f} ms)")
             entry = dict(name="ns_pdip", route="cuda", source="diffopt_tpu_torch/csrc/ns_pdip.cu",
@@ -2773,6 +2807,264 @@ def phase_two_stage(batch):
     return entries, line
 
 
+# ---------------------------------------------------------------------------------------------------------------
+# The compile gate (graft_entry.entry) and the multi-process dry run (graft_entry.dryrun_multichip)
+# ---------------------------------------------------------------------------------------------------------------
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    return x.map(lambda t: t.detach().clone()) if hasattr(x, "map") else x
+
+
+@contextlib.contextmanager
+def capture_kernel_calls():
+    """K1-K7's launches while the block runs, by kernel and shape: the inputs of the first call at each shape
+    (for K3 / K5 with the matrix whose factor they solve with) and the launches at each shape as the wrappers
+    count them. The stand-ins delegate to the wrappers, which count on whatever the module's names hold: the
+    stand-ins carry the counters while they are bound (as in _capture_ldl_calls). Yields ``(calls, launches,
+    totals)``; ``totals`` (launches by kernel) is filled when the block ends."""
+    from diffopt_tpu_torch.ops.cuda import chol, conic_pdip, ns_pdip, pdip
+
+    calls, launches, totals, factored = {}, collections.Counter(), {}, {}
+    k_of = lambda rhs: 1 if rhs.ndim == 2 else rhs.shape[2]
+    layout_of = lambda c, bE, bC, AE, AC, layout, **_: (c.shape[1], layout)
+    specs = [
+        ("K1", pdip, "solve_batched_fused", lambda qp, **_: (qp.num_vars, qp.num_ineq, qp.num_eq)),
+        ("K2", chol, "ldl_batched", lambda K, **_: K.shape[1]),
+        ("K3", chol, "ldl_solve_batched", lambda L, d, rhs, **_: (L.shape[1], k_of(rhs))),
+        ("K4", chol, "cholesky_batched", lambda H, **_: H.shape[1]),
+        ("K5", chol, "cholesky_solve_batched", lambda L, rhs, **_: (L.shape[1], k_of(rhs))),
+        ("K6", conic_pdip, "solve_tile_fused", layout_of),
+        ("K7", ns_pdip, "solve_tile_fused_ns", layout_of),
+    ]
+    saved = []
+
+    def stand_in(kernel, orig, shape_of):
+        def f(*args, **kw):
+            key = (kernel, shape_of(*args, **kw))
+            before = f.launches
+            if key not in calls:
+                inputs = tuple(_clone(a) for a in args)
+                if kernel in ("K3", "K5"):  # the matrix the factor came from, in place of the factor
+                    check(args[0].data_ptr() in factored, f"{kernel} {key[1]}: a solve with a factor not made here")
+                    inputs = (factored[args[0].data_ptr()],) + inputs[1:]
+                calls[key] = (inputs, dict(kw))
+            out = orig(*args, **kw)
+            launches[key] += f.launches - before
+            if kernel in ("K2", "K4"):
+                factored[(out[0] if kernel == "K2" else out).data_ptr()] = args[0].detach().clone()
+            return out
+
+        f.launches, f.launches_by_shape = 0, collections.Counter()
+        return f
+
+    for kernel, module, name, shape_of in specs:
+        saved.append((module, name, getattr(module, name)))
+        setattr(module, name, stand_in(kernel, getattr(module, name), shape_of))
+    try:
+        yield calls, launches, totals
+    finally:
+        for (kernel, module, name, _), (_, _, orig) in zip(specs, saved):
+            totals[kernel] = getattr(module, name).launches
+            setattr(module, name, orig)
+
+
+ENTRY_REPLACES = {"K1": "diffopt_tpu/ops/pallas/pdip.py:204", "K6": "diffopt_tpu/ops/pallas/conic_pdip.py:396",
+                  "K7": "diffopt_tpu/ops/pallas/ns_pdip.py:224"}
+
+
+def _entry_k1(qp, tag, main):
+    """K1 on one of the gate's QP batches, held at every team by k1_hold; the record where main."""
+    from diffopt_tpu_torch.ops.cuda import pdip
+
+    B, n, m, p = qp.batch_size, qp.num_vars, qp.num_ineq, qp.num_eq
+    held, _, plain_ms = k1_hold(qp, f"{tag} [entry]")
+    team = pdip.team_for(n, m, p, qp.Q.element_size())
+    _, its, max_abs = held[team]
+    if not main:
+        return None
+    ms = time_ms(lambda: pdip.solve_batched_fused(qp, max_iters=25), reps=10)
+    b_ms, b_by = k1_bound(qp, its)
+    print(f"[entry] pdip_fused n={n} m={m} p={p} B={B}: {ms:.4f} ms with a team of {team} warps (bound {b_ms:.6f} ms by"
+          f" {b_by}; plain {plain_ms:.1f} ms)")
+    return dict(name=f"entry_pdip_fused_n{n}_m{m}_p{p}", route="cuda", source="diffopt_tpu_torch/csrc/pdip.cu",
+                replaces=ENTRY_REPLACES["K1"], max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, team_warps=team, batch=B)
+
+
+def _entry_k6(args, lay, kw, tag, main):
+    """K6 on one of the gate's conic launches (its own inputs and settings), every team that takes the layout
+    against the plain version by check_k6; the record where main."""
+    from diffopt_tpu_torch.ops.cuda import conic_pdip
+
+    B, n, (p, l, socs, psds) = args[0].shape[0], args[0].shape[1], lay
+    mC, f64 = args[2].shape[1], args[0].dtype == torch.float64
+    rule = conic_pdip.team_for(n, p, l, socs, psds, args[0].element_size())
+    outs, ref, insts, plain_ms = k6_run(args, lay, kw)
+    check(rule in outs, f"conic_pdip {tag}: the launch rule's team does not take the layout")
+    max_abs = {t: check_k6(f"{tag} N={n + p + mC} team {t} [entry]", out, ref, insts[t], kw["tol"], f64, bool(psds),
+                           (args, lay, kw))
+               for t, out in outs.items()}
+    if not main:
+        return None
+    ms = time_ms(lambda: conic_pdip.solve_tile_fused(*args, lay, **kw), reps=10)
+    b_ms, b_by = k6_bound(args, lay, outs[rule][4])
+    print(f"[entry] conic_pdip layout {lay} n={n} B={B}: {ms:.4f} ms with a team of {rule} warps (bound {b_ms:.6f} ms"
+          f" by {b_by}; plain {plain_ms:.1f} ms)")
+    return dict(name=f"entry_conic_pdip_N{n + p + mC}", route="cuda", source="diffopt_tpu_torch/csrc/conic_pdip.cu",
+                replaces=ENTRY_REPLACES["K6"], max_abs_err=max_abs[rule], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, team_warps=rule, batch=B)
+
+
+def _entry_k7(args, lay, kw, tag, main):
+    """K7 on the gate's exp / pow launch, every team that takes the layout against the plain version by
+    _hold_k7 (the same bits at every team); the record where main."""
+    from diffopt_tpu_torch.ops.cuda import ns_pdip
+
+    B, n, (p, l, socs, ns) = args[0].shape[0], args[0].shape[1], lay
+    mC, item, f64 = args[2].shape[1], args[0].element_size(), args[0].dtype == torch.float64
+    teams = [t for t in ns_pdip.TEAMS if ns_pdip.team_takes(n, p, l, socs, ns, item, t)]
+    rule = ns_pdip.team_for(n, p, l, socs, ns, item)
+    check(rule in teams, f"ns_pdip {tag}: the rule's team {rule} does not take the layout")
+    ref, plain_ms = wall_ms(lambda: ns_pdip.solve_tile_fused_ns_plain(*args, lay, **kw))
+    shared = dict(plain_ms=plain_ms, team=rule)
+    ugen = torch.Generator(device=DEVICE)
+    ugen.manual_seed(0)
+    outs, dist = {}, {}
+    for t in teams:
+        outs[t] = ns_pdip.solve_tile_fused_ns(*args, lay, team=t, **kw)
+        shared["team"] = t
+        dist[t] = _hold_k7(f"{tag} team {t} [entry]", outs[t], ref, args, lay, kw, kw["tol"], f64, shared, ugen)
+    check(all(all(torch.equal(a, b) for a, b in zip(outs[t], outs[rule])) for t in teams),
+          f"ns_pdip {tag} [entry]: the teams {teams} do not give the same bits")
+    if not main:
+        return None
+    ms = time_ms(lambda: ns_pdip.solve_tile_fused_ns(*args, lay, **kw), reps=10)
+    b_ms, b_by = k7_bound(args, lay, outs[rule][4])
+    print(f"[entry] ns_pdip layout {lay} n={n} B={B}: {ms:.4f} ms with a team of {rule} warps (bound {b_ms:.6f} ms by"
+          f" {b_by}; plain {plain_ms:.1f} ms)")
+    return dict(name=f"entry_ns_pdip_N{n + p + mC}", route="cuda", source="diffopt_tpu_torch/csrc/ns_pdip.cu",
+                replaces=ENTRY_REPLACES["K7"], max_abs_err=dist[rule]["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, team_warps=rule, batch=B)
+
+
+def _entry_gram_systems(chol, H, tag):
+    """K4 on the gate's own gram systems (M'M of the HSDE map at the solution) beside its plain version: the
+    condition number, the difference relative to the largest entry of L, and each one's |L L' - H| / |H|. The
+    factor is backward stable: the difference grows with the condition, the residuals stay at rounding."""
+    L, Lp = chol.cholesky_batched(H), chol.cholesky_batched_plain(H)
+    recon = lambda X: float((X @ X.transpose(1, 2) - H).abs().max() / H.abs().max())
+    cond = float(torch.linalg.cond(H.double()).max())
+    print(f"[entry] chol_factor {tag} on the path's own gram systems, n={H.shape[1]}: condition up to {cond:.3e};"
+          f" relative difference from the plain version {rel_err(L, Lp):.3e}; |L L' - H| / |H| {recon(L):.3e} (plain"
+          f" {recon(Lp):.3e})")
+    check(bool(torch.isfinite(L).all()), f"chol_factor {tag} n={H.shape[1]}: non-finite factor of the path's system")
+
+
+def phase_entry():
+    """The compile gate: graft_entry.entry()'s step (the fused QP solver at n = 16 and 100 with its LDL' VJP,
+    the fused conic solvers on the SOCP, SDP, N = 90 and exp / pow layouts with their gram polish and VJP) on
+    the card in f32 and f64, a warm-up and three timed steps each; finite value and gradient, K1-K7 each
+    launched, and each kernel held against its plain version on the inputs of its first launch at each of the
+    step's shapes, with the checks and tolerances of the kernels phases. Returns the kernels-line records (f32),
+    their launches on the f32 step, and the ``entry`` line."""
+    from diffopt_tpu_torch import graft_entry
+    from diffopt_tpu_torch.ops.cuda import chol
+
+    line, entries, counts = {}, {}, {}
+    for dtype in (torch.float32, torch.float64):
+        tag, main = ("f32" if dtype == torch.float32 else "f64"), dtype == torch.float32
+        fn, args = graft_entry.entry(dtype=dtype)
+        check(all(t.device.type == "cuda" for a in args for t in a.tensors()), "[entry]: entry() did not build on the card")
+        reset_counts()
+        with capture_kernel_calls() as (calls, launches, totals):
+            (val, gq), first_s = wall_ms(lambda: fn(*args))  # the first call: the libraries loaded, nothing built
+            (val, gq), med = timed_steps(lambda: fn(*args), STEPS - 1)
+        first_s /= 1e3
+        runs = STEPS + 1
+        print(f"[entry] {tag}: value {float(val):.6e}; launches over {runs} steps {totals}; by shape"
+              f" {dict(sorted((f'{k} {s}', c) for (k, s), c in launches.items()))}")
+        check(bool(torch.isfinite(val)) and bool(torch.isfinite(gq).all()) and gq.shape == args[0].q.shape
+              and gq.device.type == "cuda", f"[entry] {tag}: the step's value or gradient is not finite or misplaced")
+        check(all(totals[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")),
+              f"[entry] {tag}: a kernel was not launched on the gate's step: {totals}")
+        check(sum(c for (k, _), c in launches.items() if k == "K1") == totals["K1"] == 2 * runs,
+              f"[entry] {tag}: K1 launched {totals['K1']} times, not twice a step")
+        line[tag] = dict(value=float(val), step_ms=med * 1e3, first_call_s=first_s, runs=runs, launches=totals,
+                         launches_by_shape={f"{k} {s}": c for (k, s), c in launches.items()})
+        print(f"[entry] {tag}: the step in {med * 1e3:.2f} ms (median of {STEPS - 1} after a warm-up; the first call"
+              f" {first_s:.3f} s)"
+              f" on {card_line()}")
+        # each kernel against its plain version at the step's shapes
+        recs = []
+        cgen = torch.Generator(device=DEVICE)
+        cgen.manual_seed(12)
+        for (kernel, shape), (inputs, kw) in sorted(calls.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+            if kernel == "K1":
+                recs.append(((kernel, shape), _entry_k1(inputs[0], tag, main)))
+            elif kernel == "K6":
+                recs.append(((kernel, shape), _entry_k6(inputs[:5], inputs[5], kw, tag, main)))
+            elif kernel == "K7":
+                recs.append(((kernel, shape), _entry_k7(inputs[:5], inputs[5], kw, tag, main)))
+            elif kernel == "K2":
+                N = shape
+                rhs_keys = sorted(k for (kk, k) in calls if kk == "K3" and k[0] == N)
+                check(bool(rhs_keys), f"[entry] {tag}: K2 at N = {N} without a K3 launch")
+                first = (N, 1) if (N, 1) in rhs_keys else rhs_keys[0]
+                K, rhs = inputs[0], calls[("K3", first)][0][2]
+                held = _hold_ldl(chol, K, rhs, main)
+                recs += [(("K2", N), held[0]), (("K3", first), held[1])]
+                for other in rhs_keys:
+                    if other != first:
+                        recs.append((("K3", other), _hold_ldl(chol, calls[("K3", other)][0][0], calls[("K3", other)][0][2],
+                                                               main, solve_only=True)[1]))
+            elif kernel == "K4":
+                # held as phase_kernels_chol holds every shape: on random SPD matrices of the launch's shape and
+                # batch (TOL_CHOL is set for condition ~10); the path's own gram systems reported beside them
+                _entry_gram_systems(chol, inputs[0], tag)
+                recs.append(((kernel, shape), _hold_chol(chol, "factor", _spd(*inputs[0].shape[:2], dtype, cgen), None,
+                                                         main)))
+            elif kernel == "K5":
+                rhs = torch.randn(inputs[1].shape, dtype=dtype, device=DEVICE, generator=cgen)
+                recs.append(((kernel, shape), _hold_chol(chol, "solve", _spd(*inputs[0].shape[:2], dtype, cgen), rhs,
+                                                         main)))
+        if main:
+            for key, rec in recs:
+                name = "entry_" + rec["name"] if not rec["name"].startswith("entry_") else rec["name"]
+                entries[name] = dict(rec, name=name)
+                counts[name] = launches[key]
+        del fn, args, calls
+        torch.cuda.empty_cache()
+    line["runs"] = STEPS + 1
+    return entries, counts, line
+
+
+def phase_dryrun():
+    """graft_entry.dryrun_multichip over every card of the machine, NCCL: one process a card, each part's sharded
+    result against the one-process result of the same data (the dry run raises where one is off), the fused
+    kernels K1-K6 launched inside the group in every process. Returns the ``dryrun`` line."""
+    from diffopt_tpu_torch import graft_entry
+
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    rep = graft_entry.dryrun_multichip(n)
+    for r in rep["ranks"]:
+        parts = {k: v for k, v in r.items() if isinstance(v, dict) and k != "b_launches"}
+        print(f"[dryrun] rank {r['rank']} of {r['world']} ({r['backend']}, {r.get('card')}): the fused path's launches"
+              f" inside the group {r['b_launches']}; largest relative difference from the one-process run by part"
+              f" {{{', '.join(f'{k}: {max(v.values()):.3e}' for k, v in parts.items())}}} (tol"
+              f" {graft_entry.DRYRUN_TOL:.0e}); two-stage bodies {r['d_bodies']}")
+        check("nccl" in r["backend"] and r["world"] == n, f"[dryrun]: rank {r['rank']} is not in an NCCL group of {n}")
+        check(all(r["b_launches"][k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")),
+              f"[dryrun]: rank {r['rank']} did not launch every kernel of the fused path inside the group")
+        check(all(max(v.values()) <= graft_entry.DRYRUN_TOL for v in parts.values()), "[dryrun]: a part is off")
+    print(f"[dryrun] {n} process(es) over NCCL, every part held, in {rep['seconds']:.1f} s (the processes' start"
+          f" included) on {card_line()}")
+    return rep
+
+
 def phase_native():
     """The native packer on the machine with the card: compiled (not the numpy fallback), against np.add.at, its
     batch on the card."""
@@ -2922,6 +3214,9 @@ def main(argv=None):
     entries.update(nlp_entries)
     two_stage_entries, two_stage = phase_two_stage(args.batch)
     entries.update(two_stage_entries)
+    entry_entries, entry_counts, entry = phase_entry()
+    entries.update(entry_entries)
+    dryrun = phase_dryrun()
     phase_native()
     example_seconds = phase_examples()
     # each kernel's count is read from the run of its own path: K1-K3 the QP main path's (K2 / K3 at N = 172:
@@ -2931,6 +3226,8 @@ def main(argv=None):
     # K2 / K3 at N = 10 / 14: the counts of the two-stage path's run at the bench's S = 8192
     ts_runs = {S: rec["ldl_launches"] for S, rec in two_stage.items() if isinstance(rec, dict) and "ldl_launches" in rec}
     own.update({nm: ts_runs[min(ts_runs, key=int)] for nm in two_stage_entries})
+    # the [entry] shapes: their launches on the gate's f32 step
+    own.update({nm: entry_counts for nm in entry_entries})
     # K4 / K5: one entry for each shape a path launched them at, with the count of the paths that did (the
     # staged QP path: n = 64 and 16; the gram route: n = 34 on [conic], 17 on [exp], 18 / 44 / 144 on
     # [sdp]; the condensed route on the [sdp] side 16: n = 3), and its launches per step on each; the
@@ -2957,6 +3254,8 @@ def main(argv=None):
             e["launches_per_step"] = {"nlp": e["launches"] / nlp["runs"]}
         if name in two_stage_entries:
             e["launches_per_step"] = {f"two_stage S={S}": c[name] / two_stage["runs"] for S, c in ts_runs.items()}
+        if name in entry_entries:
+            e["launches_per_step"] = {"entry": e["launches"] / entry["runs"]}
     print(
         f"[main] {rate:.1f} QP solves+VJPs per second (median step {step_s * 1e3:.2f} ms, B = {args.batch}) on {card}"
     )
@@ -2987,6 +3286,8 @@ def main(argv=None):
             print(f"[two-stage] {rec['scenarios_per_s']:.1f} scenario solves+sensitivities per second at S = {S} (median"
                   f" step {rec['step_ms']:.2f} ms, {rec['bodies']} bodies, converged {rec['converged']}) on {card}")
     print(json.dumps({"two_stage": {**two_stage, "examples_seconds": example_seconds, "card": card}}))
+    print(json.dumps({"entry": {**entry, "card": card}}))
+    print(json.dumps({"dryrun": {**dryrun, "card": card}}))
     print(json.dumps({"k6_teams": {**entries["conic_pdip"].pop("k6_teams"), "card": card}}))
     print(json.dumps({"k7_teams": {**entries["ns_pdip"].pop("k7_teams"), "card": card}}))
     print(json.dumps({"k1_teams": {**k1_teams, "card": card}}))

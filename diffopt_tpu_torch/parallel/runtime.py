@@ -60,11 +60,12 @@ def initialize_multihost(
     )
 
 
-def global_mesh(axis_names: Sequence[str] = ("batch",), shape=None) -> DeviceMesh:
-    """A mesh over every process of the default group (all hosts)."""
+def global_mesh(axis_names: Sequence[str] = ("batch",), shape=None, device=None) -> DeviceMesh:
+    """A mesh over every process of the default group (all hosts); ``device``
+    as for :func:`~.sharding.make_mesh`."""
     world = _world_size()
     shape = (world,) if shape is None else tuple(shape)
-    return init_device_mesh(_device_type(), shape, mesh_dim_names=tuple(axis_names))
+    return init_device_mesh(_device_type(device), shape, mesh_dim_names=tuple(axis_names))
 
 
 def _local_world_size(world: int) -> int:
@@ -79,6 +80,7 @@ def hybrid_mesh(
     dcn: Optional[int] = None,
     ici: Optional[int] = None,
     axis_names: Sequence[str] = ("dcn", "ici"),
+    device=None,
 ) -> DeviceMesh:
     """Two-axis DCN x ICI mesh — the BASELINE layout ("DP over DCN across
     hosts, batch over ICI within a slice").
@@ -92,7 +94,8 @@ def hybrid_mesh(
 
     Shard a flat scenario batch over *both* axes with
     :func:`scenario_sharding`: the Schur coupling reduce is then one
-    all-reduce over every process."""
+    all-reduce over every process. ``device`` names the device type of the
+    mesh, as for :func:`~.sharding.make_mesh`."""
     world = _world_size()
     if dcn is None:
         dcn = world // _local_world_size(world)
@@ -102,7 +105,7 @@ def hybrid_mesh(
         ici = world // dcn
     if dcn * ici != world:
         raise ValueError(f"dcn*ici = {dcn}*{ici} != {world} processes")
-    return init_device_mesh(_device_type(), (dcn, ici), mesh_dim_names=tuple(axis_names))
+    return init_device_mesh(_device_type(device), (dcn, ici), mesh_dim_names=tuple(axis_names))
 
 
 @dataclasses.dataclass(frozen=True)

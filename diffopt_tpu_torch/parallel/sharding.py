@@ -22,7 +22,11 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 
-def _device_type() -> str:
+def _device_type(device=None) -> str:
+    """The mesh's device type: ``device``'s where the caller names one (a string or a ``torch.device``), else
+    the card's where there is one, else the host's."""
+    if device is not None:
+        return torch.device(device).type
     return "cuda" if torch.cuda.is_available() else "cpu"
 
 
@@ -30,17 +34,19 @@ def _world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def make_mesh(n_devices: Optional[int] = None, axis_name: str = "batch") -> DeviceMesh:
+def make_mesh(n_devices: Optional[int] = None, axis_name: str = "batch", device=None) -> DeviceMesh:
     """A 1-D mesh over the first ``n_devices`` processes of the default
     process group (all of them by default), one process per device. Every
-    process of the group calls it."""
+    process of the group calls it. ``device`` names the device type of the
+    mesh (``"cpu"`` keeps it on the host where there is a card); by default
+    the card where there is one."""
     world = _world_size()
     n = world if n_devices is None else n_devices
     if not 0 < n <= world:
         raise ValueError(f"n_devices={n} with {world} processes")
     if n == world:
-        return init_device_mesh(_device_type(), (n,), mesh_dim_names=(axis_name,))
-    return DeviceMesh(_device_type(), torch.arange(n), mesh_dim_names=(axis_name,))
+        return init_device_mesh(_device_type(device), (n,), mesh_dim_names=(axis_name,))
+    return DeviceMesh(_device_type(device), torch.arange(n), mesh_dim_names=(axis_name,))
 
 
 def _tree_map(fn, tree):

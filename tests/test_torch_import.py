@@ -21,7 +21,8 @@ print("TORCH", "torch" in sys.modules)
 """
 
 
-_MODULES = ["diffopt_tpu_torch", "chip_smoke", "diffopt_tpu_torch.parallel", "diffopt_tpu_torch.native"]
+_MODULES = ["diffopt_tpu_torch", "chip_smoke", "diffopt_tpu_torch.parallel", "diffopt_tpu_torch.native",
+            "diffopt_tpu_torch.graft_entry"]
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +95,8 @@ def test_every_port_module_imports_without_a_compiler():
     for mod in ("api", "parameters", "qp_diff", "ops.linalg", "solvers.qp", "utils.batching", "ops.cuda.chol",
                 "cones", "conic_diff", "ops.smalleig", "ops.lsqr", "solvers.conic", "solvers.conic_ipm",
                 "ops.cuda.conic_pdip", "ops.jordan", "ops.ns_barrier", "ops.cuda.ns_pdip", "solvers.conic_nsipm",
-                "parallel", "parallel.schur", "parallel.sharding", "parallel.runtime", "parallel.tp_chol", "native"):
+                "parallel", "parallel.schur", "parallel.sharding", "parallel.runtime", "parallel.tp_chol", "native",
+                "graft_entry"):
         assert f"diffopt_tpu_torch.{mod}" in names
     from diffopt_tpu_torch.ops.cuda import _build
 

@@ -18,7 +18,8 @@ import sys
 import pytest
 import torch
 
-from diffopt_tpu_torch.parallel import batch_pad, hybrid_mesh, initialize_multihost, profile_trace, runtime
+from diffopt_tpu_torch.parallel import (batch_pad, global_mesh, hybrid_mesh, initialize_multihost, make_mesh,
+                                        profile_trace, runtime, sharding)
 from diffopt_tpu_torch.utils.testing import make_batch
 
 torch.set_num_threads(1)
@@ -88,6 +89,26 @@ def test_hybrid_mesh_errors():
     with pytest.raises(ValueError, match="!= 1 processes"):
         hybrid_mesh(dcn=2, ici=2)
     assert runtime.default_backend() == ("cpu:gloo,cuda:nccl" if torch.cuda.is_available() else "gloo")
+
+
+def test_meshes_stay_on_the_host_when_asked(monkeypatch):
+    """device="cpu" keeps a mesh on the host even where a card is seen (one gloo process); without it the
+    card is the default wherever there is one."""
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        assert sharding._device_type() == "cuda" and sharding._device_type(torch.device("cpu")) == "cpu"
+        meshes = (make_mesh(device="cpu"), make_mesh(1, "tp", device=torch.device("cpu")),
+                  global_mesh(device="cpu"), hybrid_mesh(1, 1, device="cpu"))
+        assert [m.device_type for m in meshes] == ["cpu"] * 4
+        assert meshes[1].mesh_dim_names == ("tp",) and meshes[3].shape == (1, 1)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_profile_trace_writes_trace(tmp_path):

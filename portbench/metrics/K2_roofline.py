@@ -1,0 +1,7 @@
+"""Share (%) of K2's device time that its least time at the published peaks takes (roofline/K2.py)."""
+
+from portbench.harness import readers
+
+
+def read(rec):
+    return readers.roofline(rec, "K2")

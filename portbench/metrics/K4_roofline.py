@@ -1,0 +1,7 @@
+"""Share (%) of K4's device time that its least time at the published peaks takes (roofline/K4.py)."""
+
+from portbench.harness import readers
+
+
+def read(rec):
+    return readers.roofline(rec, "K4")
